@@ -1,0 +1,645 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the snap_tpu_torch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py                       # as the acceptance run
+    python3 chip_smoke.py --genome-len 4641652  # a quicker, smaller run
+
+Phases, each printing one JSON line:
+  device   the card's name and power limit (nvidia-smi) and torch's name
+  build    nvcc builds the three kernels from snap_tpu_torch/csrc
+  e2e      the adaptive single-end device step end to end: a 25%-repeat
+           genome of chr21's length written as FASTA, indexed, 16384
+           simulated 100 bp reads written as FASTQ and read back, then
+           align_winners_device(adaptive=True) with and without phase C;
+           checks launch counts, accuracy, and card-vs-CPU winners, and
+           times the step (--profile adds a torch.profiler trace). The
+           inputs of every kernel launch of the phase-C step are kept.
+  kernels  each kernel launch of that step replayed on its own inputs,
+           against the kernel's plain PyTorch version on the same CUDA
+           tensors (the dynamic-programming kernels bit for bit, the
+           gapless prescreen's dist exactly and its logp within 1e-5),
+           both timed with CUDA events, beside the launch's bound
+Then one {"kernels": [...]} line (per kernel: its launches in the
+phase-C step, and the sums over those launches of its time, its plain
+version's and its bound), the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}.
+
+Exits non-zero, printing no result, when there is no CUDA device or when
+snap_tpu_torch is not beside this file. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): HBM
+# bandwidth, and 67 TFLOP/s of float32 outside the tensor cores, which
+# counts a fused multiply-add as two operations: one float32 add,
+# multiply or conversion per FP32 lane per clock is half of it. An SM
+# has half as many INT32 lanes as FP32 lanes (64 against 128, H100
+# white paper), so integer operations, compares and selects run at a
+# quarter of it.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = 67e12 / 4
+
+# Operations that the plain recurrences (snap_tpu_torch/ops) do per
+# cell, as (integer/compare/select, float32). Counted once per cell
+# from each recurrence's elementwise steps; moving a column to its
+# neighbour, masks that only matter outside the pattern, and work done
+# once per row or per read are left out. The breakdown is in PERF.md.
+DP_OPS_PER_CELL = (26, 7)      # ops/dp.py fitting_edit_distance_core_plain
+AG_OPS_PER_CELL = (44, 7)      # ops/affine.py affine_extend_core_plain
+GL_OPS_PER_WORD = 11           # ops/gapless.py, per (read, candidate, word)
+GL_OPS_PER_MISMATCH = (3, 1)   # find the set bit, add its ln P(error)
+
+KERNEL_SOURCES = {
+    "gapless_prescreen": (
+        "snap_tpu_torch/csrc/gapless.cu",
+        "snap_tpu/ops/gapless_pallas.py:98",
+    ),
+    "fitting_edit_distance": (
+        "snap_tpu_torch/csrc/dp.cu",
+        "snap_tpu/ops/dp_pallas.py:190",
+    ),
+    "affine_extend": (
+        "snap_tpu_torch/csrc/affine.cu",
+        "snap_tpu/ops/affine_pallas.py:261",
+    ),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(phase: str, msg: str, code: int = 1) -> None:
+    print(json.dumps({"phase": phase, "ok": False, "error": msg}),
+          file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def nvidia_smi_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+        return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of fn() on the current stream (CUDA events),
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def float_err(got, ref) -> float:
+    """Largest absolute difference over the float outputs of two result
+    tuples (their integer outputs are held equal separately)."""
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)
+            if a.dtype.is_floating_point and a.numel()]
+    return max(errs, default=0.0)
+
+
+def bound_ms(nbytes: float, int_ops: float, fp_ops: float) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM bandwidth, or the
+    integer and float operations on their own lanes (which run side by
+    side), whichever is longer."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# ------------------------------------------------------------ the kernels
+
+
+def kernel_table() -> dict:
+    """name -> (the pipeline's name for the wrapper it calls, the kernel
+    wrapper that counts launches, the kernel's plain version, and a
+    function turning the pipeline call's (args, kwargs) into the kernel
+    wrapper's)."""
+    from snap_tpu_torch.ops import affine, affine_cuda, dp, dp_cuda, gapless, gapless_cuda
+
+    return {
+        "gapless_prescreen": (
+            "gapless_prescreen_cuda", gapless_cuda.gapless_prescreen_cuda,
+            gapless.gapless_prescreen_plain, lambda a, kw: (a, {}),
+        ),
+        "fitting_edit_distance": (
+            "fitting_edit_distance_cuda", dp_cuda.fitting_edit_distance_core_cuda,
+            dp.fitting_edit_distance_core_plain,
+            lambda a, kw: ((*a, kw["anchored"]), {}),
+        ),
+        "affine_extend": (
+            # the kernel computes the recurrence; the epilogue takes end_bonus
+            "affine_extend_cuda", affine_cuda.affine_extend_core_cuda,
+            affine.affine_extend_core_plain, lambda a, kw: (a[:6], kw),
+        ),
+    }
+
+
+@contextlib.contextmanager
+def recording(calls: dict):
+    """Within the block the pipeline's kernel wrappers run unchanged, and
+    each call's inputs are cloned into calls[name] as the kernel
+    wrapper's (args, kwargs)."""
+    import torch
+
+    from snap_tpu_torch.align import pipeline
+
+    saved = {}
+    for name, (attr, _, _, core) in kernel_table().items():
+        fn = saved[attr] = getattr(pipeline, attr)
+
+        def rec(*a, _fn=fn, _name=name, _core=core, **kw):
+            args, kwargs = _core(a, kw)
+            calls[_name].append((
+                tuple(x.clone() if torch.is_tensor(x) else x for x in args), kwargs,
+            ))
+            return _fn(*a, **kw)
+
+        setattr(pipeline, attr, rec)
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(pipeline, attr, fn)
+
+
+def tensor_bytes(xs) -> int:
+    import torch
+
+    return sum(x.numel() * x.element_size() for x in xs if torch.is_tensor(x))
+
+
+def shape_of(name: str, args) -> dict:
+    if name == "gapless_prescreen":
+        return {"B": args[0].shape[0], "K": args[10]}
+    return {"N": args[0].shape[0], "L": args[0].shape[1], "W": args[3].shape[1]}
+
+
+def work_ops(name: str, args, got) -> tuple[float, float]:
+    """(integer, float) operations that these inputs need."""
+    if name == "gapless_prescreen":
+        B, K, PW = args[0].shape[0], args[10], args[11]
+        mism = float(got[0].sum())
+        return (B * K * (GL_OPS_PER_WORD * PW + 1) + GL_OPS_PER_MISMATCH[0] * mism,
+                GL_OPS_PER_MISMATCH[1] * mism)
+    if name == "fitting_edit_distance":
+        pat, plen, text = args[0], args[2], args[3]
+        cells = float(plen.clamp(0, pat.shape[1]).sum()) * (text.shape[1] + 1)
+        per = DP_OPS_PER_CELL
+    else:
+        pat, plen, text, tlen = args[0], args[2], args[3], args[4]
+        cells = float((plen.clamp(0, pat.shape[1]).double()
+                       * tlen.clamp(0, text.shape[1]).double()).sum())
+        per = AG_OPS_PER_CELL
+    return cells * per[0], cells * per[1]
+
+
+def compare(name: str, got, ref) -> float:
+    """Fails unless the kernel's outputs equal the plain version's (the
+    gapless prescreen's logp within 1e-5); returns the largest absolute
+    difference of the float outputs."""
+    import torch
+
+    if name == "gapless_prescreen":
+        if not torch.equal(got[0], ref[0]):
+            bad = int((got[0] != ref[0]).sum())
+            fail("kernels", f"gapless dist differs in {bad} of {got[0].numel()}")
+        err = float_err(got, ref)
+        if not err <= 1e-5:
+            fail("kernels", f"gapless logp err {err}")
+        return err
+    fields = getattr(got, "_fields", ("packed", "log_prob", "end_col"))
+    for g, r, field in zip(got, ref, fields):
+        gi, ri = g.contiguous().view(torch.int32), r.contiguous().view(torch.int32)
+        if not torch.equal(gi, ri):
+            bad = int((gi != ri).sum())
+            fail("kernels", f"{name} {field} differs in {bad} of {g.numel()} rows")
+    return float_err(got, ref)
+
+
+# ------------------------------------------------------------------ phases
+
+
+def phase_device():
+    import torch
+
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "ok": True, "nvidia_smi": smi,
+          "torch_name": name, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi, name
+
+
+def phase_build():
+    from snap_tpu_torch.ops import _build
+
+    t0 = time.time()
+    per = _build.build_all()
+    secs = time.time() - t0
+    regs = {
+        n: [ln.strip() for ln in _build.BUILD_LOG.get(n, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+        for n in _build.KERNELS
+    }
+    emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
+          "per_kernel_s": {k: round(v, 3) for k, v in per.items()},
+          "ptxas": regs})
+
+
+def phase_kernels(calls: dict) -> dict:
+    """Each kernel launch of the main path's phase-C step again, on its
+    own inputs: the kernel against its plain version, both timed, and
+    the launch's bound. Returns name -> per-launch rows."""
+    import torch
+
+    summary = {}
+    for name, (_, kern, plain, _) in kernel_table().items():
+        rows = []
+        for args, kw in calls[name]:
+            got = kern(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = compare(name, got, ref)
+            ms = cuda_ms(lambda: kern(*args, **kw))
+            pms = cuda_ms(lambda: plain(*args, **kw))
+            nbytes = tensor_bytes(args) + tensor_bytes(got)
+            int_ops, fp_ops = work_ops(name, args, got)
+            bms, by = bound_ms(nbytes, int_ops, fp_ops)
+            rows.append({
+                "shape": shape_of(name, args),
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bytes": nbytes, "int_ops": int_ops, "fp_ops": fp_ops,
+                "bound_ms": bms, "bound_by": by,
+            })
+        emit({"phase": "kernels", "kernel": name, "ok": True, "launches": rows})
+        summary[name] = rows
+    return summary
+
+
+# --------------------------------------------------------------- end to end
+
+CHR21_BP = 46_709_983   # BASELINE config 3's reference length
+READS, READ_LEN, MAX_LEN = 16384, 100, 128
+CHECK_READS = 1024      # card-vs-CPU batch
+
+
+def gen_repeat_genome(rng, glen: int, repeat_frac: float) -> np.ndarray:
+    """Synthetic genome with planted repeats (the model of bench.py's
+    _gen_repeat_genome): ~300 bp SINE-like units with 1% divergence,
+    6 kb LINE-like units, and tandem microsatellites."""
+    seq = rng.integers(0, 4, size=glen).astype(np.uint8)
+    budget = int(glen * repeat_frac)
+    alu = rng.integers(0, 4, size=300).astype(np.uint8)
+    for _ in range(max(1, budget // 2 // 300)):
+        p = int(rng.integers(0, glen - 300))
+        u = alu.copy()
+        d = rng.random(300) < 0.01
+        u[d] = rng.integers(0, 4, int(d.sum()))
+        seq[p : p + 300] = u
+    line = rng.integers(0, 4, size=6000).astype(np.uint8)
+    for _ in range(max(1, budget // 2 // 6000)):
+        p = int(rng.integers(0, glen - 6000))
+        seq[p : p + 6000] = line
+    for _ in range(max(1, glen // 20000)):
+        unit = rng.integers(0, 4, size=4).astype(np.uint8)
+        reps = int(rng.integers(20, 60))
+        p = int(rng.integers(0, glen - 4 * reps))
+        seq[p : p + 4 * reps] = np.tile(unit, reps)
+    return seq
+
+
+def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 100):
+    from snap_tpu_torch.constants import BASE_DECODE
+
+    text = BASE_DECODE[codes].tobytes()
+    with open(path, "wb") as f:
+        f.write(b">" + name.encode() + b"\n")
+        for i in range(0, len(text), width):
+            f.write(text[i : i + width] + b"\n")
+
+
+def simulate_reads(rng, codes: np.ndarray, contig_start: int, n: int, L: int):
+    """n reads of L bases: 1% substitutions, a 1-3 bp deletion or
+    insertion in a quarter of them, half from the reverse strand.
+    Returns (codes [n, L] uint8, qual bytes [n, L] uint8, the genome
+    location one past the sampled reference span [n] int64)."""
+    reads = np.empty((n, L), np.uint8)
+    true_end = np.empty(n, np.int64)
+    span = L + 8
+    starts = rng.integers(0, codes.size - span, n)
+    for i in range(n):
+        s = int(starts[i])
+        r = codes[s : s + span].copy()
+        used = L
+        kind = i % 8
+        if kind == 1:  # deletion from the read
+            p, k = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
+            r = np.delete(r, slice(p, p + k))
+            used = L + k
+        elif kind == 2:  # insertion into the read
+            p, k = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
+            r = np.insert(r, p, rng.integers(0, 4, k).astype(np.uint8))
+            used = L - k
+        r = r[:L]
+        if rng.random() < 0.5:
+            r = (3 - r)[::-1]
+        reads[i] = r
+        true_end[i] = contig_start + s + used
+    mut = rng.random((n, L)) < 0.01
+    reads = np.where(mut, rng.integers(0, 4, (n, L)), reads).astype(np.uint8)
+    phred = np.clip(rng.normal(36, 5, (n, L)).round(), 2, 41).astype(np.uint8)
+    return reads, phred + 33, true_end
+
+
+def write_fastq(path: str, reads: np.ndarray, quals: np.ndarray):
+    from snap_tpu_torch.constants import BASE_DECODE
+
+    seqs = BASE_DECODE[reads]
+    with open(path, "wb") as f:
+        for i in range(reads.shape[0]):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), quals[i].tobytes()))
+
+
+def counted(run) -> tuple[object, dict]:
+    """Run `run()` with every launch counter set to 0 just before, and
+    return its result with the counts read just after."""
+    import torch
+
+    ws = {name: t[1] for name, t in kernel_table().items()}
+    for w in ws.values():
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, w in ws.items()}
+
+
+def profile_steps(step, n: int) -> dict:
+    """torch.profiler over n adaptive steps: wall time, device busy
+    time (the union of kernel intervals), and device time by op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step().cpu()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step().cpu()
+        wall = time.perf_counter() - t0
+    kernels = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, -1.0
+    for s, e in kernels:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    return {
+        "steps": n, "wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy / 1e3 / n,
+        "device_busy_share": busy / 1e6 / wall,
+        "device_kernels_per_step": len(kernels) / n,
+        "top_device_ops": [
+            {"op": a.key, "ms_per_step": a.self_device_time_total / 1e3 / n,
+             "calls_per_step": a.count / n}
+            for a in ops[:12]
+        ],
+    }
+
+
+def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
+    """Returns the launch counts of the phase-C step and the inputs of
+    each of its launches (name -> [(args, kwargs)])."""
+    import torch
+
+    from snap_tpu_torch.align.pipeline import (
+        AlignParams,
+        HostWinners,
+        align_winners_device,
+    )
+    from snap_tpu_torch.genome import load_fasta
+    from snap_tpu_torch.index.index import GenomeIndex
+    from snap_tpu_torch.io.fastq import read_batches
+
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    codes = gen_repeat_genome(rng, glen, 0.25)
+    fa = os.path.join(workdir, "ref.fa")
+    write_fasta(fa, "chr21sim", codes)
+    genome = load_fasta(fa)
+    contig_start = genome.contigs[0].start
+    if not np.array_equal(genome.bases[contig_start : contig_start + glen], codes):
+        fail("e2e", "FASTA round trip changed the genome")
+    t_gen = time.time() - t0
+
+    t0 = time.time()
+    idx = GenomeIndex.build(genome, seed_len=24, device="cuda")
+    torch.cuda.synchronize()
+    t_index = time.time() - t0
+    index_bytes = sum(t.numel() * t.element_size() for t in idx.device)
+
+    reads, quals, true_end = simulate_reads(rng, codes, contig_start, READS, READ_LEN)
+    fq = os.path.join(workdir, "reads.fq")
+    write_fastq(fq, reads, quals)
+    batch = next(read_batches(fq, batch_size=READS, max_len=MAX_LEN))
+    if len(batch) != READS or not np.array_equal(batch.bases[:, :READ_LEN], reads):
+        fail("e2e", "FASTQ round trip changed the reads")
+
+    dev = torch.device("cuda")
+    b = torch.from_numpy(batch.bases).to(dev)
+    q = torch.from_numpy(batch.quals).to(dev)
+    ln = torch.from_numpy(batch.lengths).to(dev)
+    fas = torch.tensor(genome.first_alt_start(), dtype=torch.int64, device=dev)
+    params = AlignParams(seed_len=24, max_probe=idx.max_probe)
+
+    def step(phase_c=False, bb=b, qq=q, ll=ln, didx=idx.device):
+        packed, _ = align_winners_device(
+            didx, bb, qq, ll, fas.to(bb.device), params,
+            adaptive=True, phase_c=phase_c,
+        )
+        return packed
+
+    # the main path, counted: one adaptive step, then one with phase C
+    # whose kernel inputs are kept for the kernels phase
+    per_step = {"gapless_prescreen": 2, "fitting_edit_distance": 4, "affine_extend": 4}
+    per_step_c = {"gapless_prescreen": 3, "fitting_edit_distance": 6, "affine_extend": 6}
+    torch.cuda.reset_peak_memory_stats()
+    packed_ab, counts_ab = counted(lambda: step())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(calls):
+        packed_c, counts_c = counted(lambda: step(phase_c=True))
+    for want, got, what in ((per_step, counts_ab, "adaptive"),
+                            (per_step_c, counts_c, "adaptive+phase C")):
+        if got != want:
+            fail("e2e", f"{what} step launched {got}, expected {want}")
+    if {n: len(c) for n, c in calls.items()} != counts_c:
+        fail("e2e", "recorded kernel calls do not match the launch counts")
+
+    # accuracy: reads placed with MAPQ >= 10 end near where they were
+    # sampled
+    acc = {}
+    for name, pk in (("adaptive", packed_ab), ("phase_c", packed_c)):
+        w = HostWinners(pk)
+        near = np.abs(w.end_loc - true_end) <= 30
+        conf_all = w.found & (w.mapq >= 10)
+        # rows flagged truncated or fallback are redone exactly on the
+        # host; the device's answer is final for the others
+        conf = conf_all & ~w.truncated & ~w.fallback
+        share = float(near[conf].mean()) if conf.any() else 0.0
+        acc[name] = {"mapq10_final_reads": int(conf.sum()), "within_30bp": share,
+                     "mapq10_all_reads": int(conf_all.sum()),
+                     "within_30bp_all": float(near[conf_all].mean()) if conf_all.any() else 0.0,
+                     "found": int(w.found.sum()),
+                     "truncated": int(w.truncated.sum()),
+                     "fallback": int(w.fallback.sum())}
+        if share < 0.98:
+            fail("e2e", f"{name}: only {share:.4f} of MAPQ>=10 reads within 30 bp")
+
+    # the same first reads on the card and on the CPU
+    n = CHECK_READS
+    sl = lambda t: t[:n].contiguous()
+    card = step(bb=sl(b), qq=sl(q), ll=sl(ln)).cpu().numpy()
+    t0 = time.time()
+    cpu_idx = idx.on("cpu")
+    cpu = step(bb=sl(b).cpu(), qq=sl(q).cpu(), ll=sl(ln).cpu(), didx=cpu_idx).numpy()
+    t_cpu = time.time() - t0
+    rows = np.flatnonzero((card != cpu).any(axis=1))
+    diffs = [{"row": int(r), "card": card[r].tolist(), "cpu": cpu[r].tolist()}
+             for r in rows]
+    for r in rows:
+        wc, wu = HostWinners(card[[r, -1]]), HostWinners(cpu[[r, -1]])
+        same_but_mapq = np.array_equal(card[r, :5], cpu[r, :5]) and (
+            (card[r, 5] & ~0xFF) == (cpu[r, 5] & ~0xFF))
+        if r == n or not same_but_mapq or abs(int(wc.mapq[0]) - int(wu.mapq[0])) > 1:
+            fail("e2e", f"card and CPU winners differ beyond MAPQ +-1: {diffs}")
+    if len(rows) > 2:
+        fail("e2e", f"{len(rows)} of {n} rows differ between card and CPU: {diffs}")
+
+    # step rate, pipelined: step i+1 is queued before step i's winners
+    # are fetched (bench.py's timing loop)
+    step().cpu()
+    n_steps = 8
+    stamps = []
+    t0 = time.perf_counter()
+    nxt = step()
+    for i in range(n_steps):
+        cur = nxt
+        if i + 1 < n_steps:
+            nxt = step()
+        cur.cpu()
+        stamps.append(time.perf_counter())
+    total = stamps[-1] - t0
+    # the last interval only drains the queue: leave it out of the median
+    step_s = np.diff([t0] + stamps)[:-1]
+    med = float(np.median(step_s))
+    res = {
+        "phase": "e2e", "ok": True,
+        "genome_bp": glen, "repeat_frac": 0.25,
+        "genome_s": round(t_gen, 3), "index_build_s": round(t_index, 3),
+        "index_device_bytes": index_bytes, "max_probe": idx.max_probe,
+        "reads": READS, "read_len": READ_LEN, "max_len": MAX_LEN,
+        "launches_adaptive": counts_ab, "launches_phase_c": counts_c,
+        "accuracy": acc,
+        "card_vs_cpu": {"reads": n, "rows_differ": len(rows), "diffs": diffs,
+                        "cpu_s": round(t_cpu, 3)},
+        "steps": n_steps,
+        "step_ms_median": med * 1e3,
+        "step_ms_all": [float(x * 1e3) for x in step_s],
+        "reads_per_s": READS * n_steps / total,  # all steps over their total time
+        "reads_per_s_median_step": READS / med,
+        "peak_device_gb_adaptive_step": peak_gb,
+    }
+    if profile:
+        res["profile"] = profile_steps(step, 3)
+    emit(res)
+    return counts_c, calls
+
+
+def kernels_line(ksum: dict, launches: dict) -> dict:
+    """The summary line: per kernel, its launches in the phase-C step and
+    the sums over those launches (replayed in the kernels phase) of its
+    time, its plain version's time and its bound."""
+    out = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        rows = ksum[name]
+        by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        bound = sum(r["bound_ms"] for r in rows)
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound,
+            "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
+            "library_ms": None,
+        })
+    return {"kernels": out}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--genome-len", type=int, default=CHR21_BP)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace three end-to-end steps with torch.profiler")
+    args = ap.parse_args()
+
+    if not os.path.isdir(os.path.join(HERE, "snap_tpu_torch")):
+        fail("setup", "snap_tpu_torch/ is not beside chip_smoke.py", 2)
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("device", "torch.cuda.is_available() is false", 2)
+
+    smi, name = phase_device()
+    phase_build()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
+        launches, calls = phase_e2e(args.seed, args.genome_len, wd, args.profile)
+    if not all(launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
+        fail("e2e", f"a kernel was never launched on the main path: {launches}")
+    ksum = phase_kernels(calls)
+    emit(kernels_line(ksum, launches))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

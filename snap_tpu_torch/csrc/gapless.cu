@@ -1,0 +1,99 @@
+// Tier-1 gapless prescreen for Hopper (sm_90a).
+//
+// Replaces: snap_tpu/ops/gapless_pallas.py gapless_prescreen_pallas
+// (the Pallas kernel _kernel, lines 33-95). Plain PyTorch version:
+// snap_tpu_torch/ops/gapless.py gapless_prescreen_plain.
+//
+// Work: for every (read b, candidate k), XOR PW 2-bit-packed text words
+// with the forward or RC pattern words (by dirs[b,k]), OR in the text
+// and pattern N bits, mask to the read length, popcount -> dist, and sum
+// ln P(error) over the mismatching positions -> logp_err.
+//
+// What bounds it on this card: bytes. Each pair reads 2*PW text/bad
+// words (64 B at PW=8) and writes 8 B; the per-read pattern words and
+// the L floats of logq are shared by the K candidates of a read. The
+// arithmetic (a few integer ops per word plus L selects and adds) is far
+// below the card's integer rate.
+//
+// Design: one thread per (read, candidate). Threads of one read sit next
+// to each other, so the per-read pattern words and logq row are fetched
+// once from device memory and served to the K threads from L1. The
+// logp sum takes the fixed order of ops/sums.py (windows of 32
+// positions), one rounded float add at a time (built with -fmad=false),
+// so it matches the plain version bit for bit.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kEven = 0x55555555u;
+
+__global__ void gapless_kernel(
+    const unsigned* __restrict__ tw, const unsigned* __restrict__ bw,
+    const unsigned* __restrict__ fw, const unsigned* __restrict__ rw,
+    const unsigned* __restrict__ fb, const unsigned* __restrict__ rb,
+    const float* __restrict__ lqf, const float* __restrict__ lqr,
+    const int* __restrict__ dirs, const int* __restrict__ plen,
+    int* __restrict__ dist, float* __restrict__ logp,
+    int B, int K, int PW, int L) {
+  long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)B * K) return;
+  long b = idx / K;
+  bool rc = dirs[idx] == 1;
+  const unsigned* t = tw + idx * PW;
+  const unsigned* tb = bw + idx * PW;
+  const unsigned* pw = (rc ? rw : fw) + b * PW;
+  const unsigned* pb = (rc ? rb : fb) + b * PW;
+  const float* lq = (rc ? lqr : lqf) + b * L;
+  int pl = plen[b];
+  // summation order of ops/sums.py ordered_sum: windows of 32
+  // positions starting `lo` positions before position 0, each summed
+  // from +0.0, then the window sums from +0.0 (L <= 1024: one level)
+  const int lo = L <= 32 ? 0 : ((32 - L % 32) % 32) / 2;
+  int d = 0;
+  float total = 0.0f, wacc = 0.0f;
+  int cur = 0;
+  for (int w = 0; w < PW; ++w) {
+    unsigned x = __ldg(t + w) ^ __ldg(pw + w);
+    int r16 = min(max(pl - 16 * w, 0), 16);
+    unsigned mask =
+        r16 >= 16 ? kEven : (((1u << (2 * r16)) - 1u) & kEven);
+    unsigned m =
+        (((x | (x >> 1)) & kEven) | __ldg(tb + w) | __ldg(pb + w)) & mask;
+    d += __popc(m);
+    int pend = min(16, L - 16 * w);
+    for (int i = 0; i < pend; ++i) {
+      const int p = 16 * w + i;
+      const int win = L <= 32 ? 0 : (p + lo) >> 5;
+      if (win != cur) {
+        total = __fadd_rn(total, wacc);
+        wacc = 0.0f;
+        cur = win;
+      }
+      float v = ((m >> (2 * i)) & 1u) ? __ldg(lq + p) : 0.0f;
+      wacc = __fadd_rn(wacc, v);
+    }
+  }
+  dist[idx] = d;
+  logp[idx] = __fadd_rn(total, wacc);
+}
+
+}  // namespace
+
+extern "C" int gapless_prescreen_launch(
+    const void* tw, const void* bw, const void* fw, const void* rw,
+    const void* fb, const void* rb, const void* lqf, const void* lqr,
+    const void* dirs, const void* plen, void* dist, void* logp,
+    int B, int K, int PW, int L, void* stream) {
+  long n = (long)B * K;
+  if (n > 0) {
+    int threads = 256;
+    long blocks = (n + threads - 1) / threads;
+    gapless_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)tw, (const unsigned*)bw, (const unsigned*)fw,
+        (const unsigned*)rw, (const unsigned*)fb, (const unsigned*)rb,
+        (const float*)lqf, (const float*)lqr, (const int*)dirs,
+        (const int*)plen, (int*)dist, (float*)logp, B, K, PW, L);
+  }
+  return (int)cudaGetLastError();
+}

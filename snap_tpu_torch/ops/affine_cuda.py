@@ -1,0 +1,100 @@
+"""ctypes wrapper of the CUDA affine-gap extension (csrc/affine.cu).
+
+`affine_extend_core_cuda` has the signature of
+ops.affine.affine_extend_core_plain (the recurrence) and
+`affine_extend_cuda` that of ops.affine.affine_extend_plain (the
+recurrence and the shared torch epilogue finish_extend). CUDA tensors
+launch the kernel; CPU tensors run the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .affine import (
+    LOG_GAP_EXTEND,
+    LOG_GAP_OPEN,
+    NEG_F,
+    ExtendBest,
+    ExtendResult,
+    affine_extend_core_plain,
+    finish_extend,
+)
+from ..constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
+
+MAX_L = 256  # 8 pattern columns per lane of one warp
+
+
+def _lib():
+    fn = _build.load("affine").affine_extend_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def affine_extend_core_cuda(
+    pattern, pat_logq, plen, text, tlen, score_init,
+    match=AG_MATCH, sub=AG_MISMATCH, gap_open=AG_GAP_OPEN,
+    gap_extend=AG_GAP_EXTEND,
+) -> ExtendBest:
+    if not pattern.is_cuda:
+        return affine_extend_core_plain(
+            pattern, pat_logq, plen, text, tlen, score_init,
+            match=match, sub=sub, gap_open=gap_open, gap_extend=gap_extend,
+        )
+    N, L = pattern.shape
+    T = text.shape[1]
+    dev = pattern.device
+    for name, t, shape, dt in (
+        ("pattern", pattern, (N, L), torch.uint8),
+        ("pat_logq", pat_logq, (N, L), torch.float32),
+        ("plen", plen, (N,), torch.int32),
+        ("text", text, (N, T), torch.uint8),
+        ("tlen", tlen, (N,), torch.int32),
+        ("score_init", score_init, (N,), torch.int32),
+    ):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"affine_extend_core_cuda: {name} must be {dt} {shape} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"affine_extend_core_cuda: {name} not contiguous")
+    if L > MAX_L:
+        raise ValueError(f"affine_extend_core_cuda: L = {L} > {MAX_L}")
+    out_i = torch.empty((N, 7), dtype=torch.int32, device=dev)
+    out_f = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _lib()(
+        p(pattern), p(pat_logq), p(plen), p(text), p(tlen), p(score_init),
+        p(out_i), p(out_f), N, L, T, match, sub, gap_open + gap_extend,
+        gap_extend, LOG_GAP_OPEN, LOG_GAP_EXTEND, NEG_F,
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "affine_extend")
+    affine_extend_core_cuda.launches += 1
+    return ExtendBest(
+        out_i[:, 0], out_i[:, 1], out_f[:, 0], out_i[:, 2],
+        out_i[:, 3], out_i[:, 4], out_i[:, 5], out_f[:, 1], out_i[:, 6],
+    )
+
+
+affine_extend_core_cuda.launches = 0
+
+
+def affine_extend_cuda(
+    pattern, pat_logq, plen, text, tlen, score_init, end_bonus,
+    match=AG_MATCH, sub=AG_MISMATCH, gap_open=AG_GAP_OPEN,
+    gap_extend=AG_GAP_EXTEND,
+) -> ExtendResult:
+    best = affine_extend_core_cuda(
+        pattern, pat_logq, plen, text, tlen, score_init,
+        match=match, sub=sub, gap_open=gap_open, gap_extend=gap_extend,
+    )
+    return finish_extend(best, plen, score_init, end_bonus, pat_logq=pat_logq)
