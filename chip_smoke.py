@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # as the acceptance run
     python3 chip_smoke.py --genome-len 4641652  # a quicker, smaller run
+    python3 chip_smoke.py --baseline .archive   # also time the kernels there
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's name
@@ -16,13 +17,21 @@ Phases, each printing one JSON line:
            inputs of every kernel launch of the phase-C step are kept.
   kernels  each kernel launch of that step replayed on its own inputs,
            against the kernel's plain PyTorch version on the same CUDA
-           tensors (the dynamic-programming kernels bit for bit, the
-           gapless prescreen's dist exactly and its logp within 1e-5),
-           both timed with CUDA events, beside the launch's bound
+           tensors (every output bit for bit), beside the launch's bound.
+           Two times per launch: `ms`, the kernel's device time (the
+           wrapper captured 50 times in one CUDA graph, the graph
+           replayed between CUDA events, so the host's checks and
+           allocations stay out of the window), and `call_ms`, CUDA
+           events around one wrapper call as the host-bound step pays
+           it. With --baseline DIR, each kernel whose source (affine.cu,
+           dp.cu, gapless.cu) lies in DIR is also built from there and
+           timed on the same launches in turns (baseline, kernel,
+           kernel, baseline): how an earlier commit's kernel is put
+           beside the current one without committing it.
 Then one {"kernels": [...]} line (per kernel: its launches in the
-phase-C step, and the sums over those launches of its time, its plain
-version's and its bound), the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.
+phase-C step, and the sums over those launches of its device time, its
+per-call time, its plain version's time and its bound), the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
 snap_tpu_torch is not beside this file. Imports nothing of JAX.
@@ -102,8 +111,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events),
-    after one warm-up call."""
+    """Median milliseconds of one fn() call between CUDA events on the
+    current stream, after one warm-up call: the host's work inside fn
+    counts whenever the card waits for it."""
     import torch
 
     fn()
@@ -117,6 +127,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def device_ms(fn, per_graph: int = 50, reps: int = 5) -> float:
+    """Median device milliseconds per fn() call: fn captured per_graph
+    times in one CUDA graph, the graph replayed between CUDA events, so
+    only the launches' device time (and the graph's gaps between them)
+    is in the window. fn must launch on the current stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(per_graph):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / per_graph)
+    del g
     return float(np.median(times))
 
 
@@ -142,25 +183,28 @@ def bound_ms(nbytes: float, int_ops: float, fp_ops: float) -> tuple[float, str]:
 
 def kernel_table() -> dict:
     """name -> (the pipeline's name for the wrapper it calls, the kernel
-    wrapper that counts launches, the kernel's plain version, and a
-    function turning the pipeline call's (args, kwargs) into the kernel
-    wrapper's)."""
+    wrapper that counts launches, the kernel's plain version, a function
+    turning the pipeline call's (args, kwargs) into the kernel
+    wrapper's, and the wrapper's C launcher)."""
     from snap_tpu_torch.ops import affine, affine_cuda, dp, dp_cuda, gapless, gapless_cuda
 
     return {
         "gapless_prescreen": (
             "gapless_prescreen_cuda", gapless_cuda.gapless_prescreen_cuda,
             gapless.gapless_prescreen_plain, lambda a, kw: (a, {}),
+            gapless_cuda.KERNEL,
         ),
         "fitting_edit_distance": (
             "fitting_edit_distance_cuda", dp_cuda.fitting_edit_distance_core_cuda,
             dp.fitting_edit_distance_core_plain,
             lambda a, kw: ((*a, kw["anchored"]), {}),
+            dp_cuda.KERNEL,
         ),
         "affine_extend": (
             # the kernel computes the recurrence; the epilogue takes end_bonus
             "affine_extend_cuda", affine_cuda.affine_extend_core_cuda,
             affine.affine_extend_core_plain, lambda a, kw: (a[:6], kw),
+            affine_cuda.KERNEL,
         ),
     }
 
@@ -175,7 +219,7 @@ def recording(calls: dict):
     from snap_tpu_torch.align import pipeline
 
     saved = {}
-    for name, (attr, _, _, core) in kernel_table().items():
+    for name, (attr, _, _, core, _) in kernel_table().items():
         fn = saved[attr] = getattr(pipeline, attr)
 
         def rec(*a, _fn=fn, _name=name, _core=core, **kw):
@@ -224,26 +268,33 @@ def work_ops(name: str, args, got) -> tuple[float, float]:
     return cells * per[0], cells * per[1]
 
 
-def compare(name: str, got, ref) -> float:
-    """Fails unless the kernel's outputs equal the plain version's (the
-    gapless prescreen's logp within 1e-5); returns the largest absolute
-    difference of the float outputs."""
+OUTPUT_FIELDS = {
+    "gapless_prescreen": ("dist", "logp_err"),
+    "fitting_edit_distance": ("packed", "log_prob", "end_col"),
+}
+
+
+def differing(name: str, got, ref) -> list[str]:
+    """The outputs in which the kernel's bits differ from the plain
+    version's, with the count of differing elements."""
     import torch
 
-    if name == "gapless_prescreen":
-        if not torch.equal(got[0], ref[0]):
-            bad = int((got[0] != ref[0]).sum())
-            fail("kernels", f"gapless dist differs in {bad} of {got[0].numel()}")
-        err = float_err(got, ref)
-        if not err <= 1e-5:
-            fail("kernels", f"gapless logp err {err}")
-        return err
-    fields = getattr(got, "_fields", ("packed", "log_prob", "end_col"))
+    fields = getattr(got, "_fields", None) or OUTPUT_FIELDS[name]
+    out = []
     for g, r, field in zip(got, ref, fields):
         gi, ri = g.contiguous().view(torch.int32), r.contiguous().view(torch.int32)
         if not torch.equal(gi, ri):
-            bad = int((gi != ri).sum())
-            fail("kernels", f"{name} {field} differs in {bad} of {g.numel()} rows")
+            out.append(f"{field} differs in {int((gi != ri).sum())} of {g.numel()}")
+    return out
+
+
+def compare(name: str, got, ref) -> float:
+    """Fails unless every output of the kernel equals the plain
+    version's bit for bit; returns the largest absolute difference of
+    the float outputs (0.0)."""
+    bad = differing(name, got, ref)
+    if bad:
+        fail("kernels", f"{name}: " + "; ".join(bad))
     return float_err(got, ref)
 
 
@@ -261,47 +312,80 @@ def phase_device():
     return smi, name
 
 
-def phase_build():
+def baselines(directory: str | None) -> dict:
+    """kernel name -> the library name of its baseline source in
+    `directory` (registered with the build), for those that have one."""
     from snap_tpu_torch.ops import _build
 
+    out = {}
+    for name, (src, _) in (KERNEL_SOURCES.items() if directory else ()):
+        path = os.path.join(directory, os.path.basename(src))
+        if os.path.exists(path):
+            lib = os.path.basename(src)[: -len(".cu")] + "_baseline"
+            _build.add_source(lib, path)
+            out[name] = lib
+    return out
+
+
+def phase_build(base: dict):
+    from snap_tpu_torch.ops import _build
+
+    names = (*_build.KERNELS, *base.values())
     t0 = time.time()
-    per = _build.build_all()
+    per = _build.build_all(names)
     secs = time.time() - t0
     regs = {
         n: [ln.strip() for ln in _build.BUILD_LOG.get(n, "").splitlines()
             if "registers" in ln or "spill" in ln]
-        for n in _build.KERNELS
+        for n in names
     }
     emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per.items()},
           "ptxas": regs})
 
 
-def phase_kernels(calls: dict) -> dict:
+def phase_kernels(calls: dict, base: dict) -> dict:
     """Each kernel launch of the main path's phase-C step again, on its
-    own inputs: the kernel against its plain version, both timed, and
-    the launch's bound. Returns name -> per-launch rows."""
+    own inputs: the kernel against its plain version, its device and
+    per-call times, the plain version's time, and the launch's bound;
+    with a baseline library, that kernel's outputs and device time on
+    the same inputs, timed in turns with the kernel. Returns name ->
+    per-launch rows."""
     import torch
 
     summary = {}
-    for name, (_, kern, plain, _) in kernel_table().items():
+    for name, (_, kern, plain, _, launcher) in kernel_table().items():
         rows = []
         for args, kw in calls[name]:
-            got = kern(*args, **kw)
+            run = lambda: kern(*args, **kw)
+            got = run()
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
             err = compare(name, got, ref)
-            ms = cuda_ms(lambda: kern(*args, **kw))
-            pms = cuda_ms(lambda: plain(*args, **kw))
+            row = {"shape": shape_of(name, args), "max_abs_err": err}
+            if name in base:
+                with launcher.using(base[name]):
+                    got_b = run()
+                    torch.cuda.synchronize()
+                    row["base_differs"] = differing(name, got_b, ref)
+                    t_b = [device_ms(run)]
+                t_k = [device_ms(run), device_ms(run)]
+                with launcher.using(base[name]):
+                    t_b.append(device_ms(run))
+                row["base_ms"] = float(np.mean(t_b))
+                row["ms"] = float(np.mean(t_k))
+            else:
+                row["ms"] = device_ms(run)
+            row["call_ms"] = cuda_ms(run)
+            row["plain_ms"] = cuda_ms(lambda: plain(*args, **kw))
             nbytes = tensor_bytes(args) + tensor_bytes(got)
             int_ops, fp_ops = work_ops(name, args, got)
             bms, by = bound_ms(nbytes, int_ops, fp_ops)
-            rows.append({
-                "shape": shape_of(name, args),
-                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            row.update({
                 "bytes": nbytes, "int_ops": int_ops, "fp_ops": fp_ops,
                 "bound_ms": bms, "bound_by": by,
             })
+            rows.append(row)
         emit({"phase": "kernels", "kernel": name, "ok": True, "launches": rows})
         summary[name] = rows
     return summary
@@ -591,22 +675,27 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
 def kernels_line(ksum: dict, launches: dict) -> dict:
     """The summary line: per kernel, its launches in the phase-C step and
     the sums over those launches (replayed in the kernels phase) of its
-    time, its plain version's time and its bound."""
+    device time, its per-call time, its plain version's time and its
+    bound (and its baseline's device time, when there was one)."""
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         rows = ksum[name]
         by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
         bound = sum(r["bound_ms"] for r in rows)
-        out.append({
+        k = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
+            "call_ms": sum(r["call_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": bound,
             "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
             "library_ms": None,
-        })
+        }
+        if all("base_ms" in r for r in rows):
+            k["base_ms"] = sum(r["base_ms"] for r in rows)
+        out.append(k)
     return {"kernels": out}
 
 
@@ -616,6 +705,8 @@ def main() -> None:
     ap.add_argument("--genome-len", type=int, default=CHR21_BP)
     ap.add_argument("--profile", action="store_true",
                     help="also trace three end-to-end steps with torch.profiler")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="also build and time the kernel sources found in DIR")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "snap_tpu_torch")):
@@ -627,14 +718,15 @@ def main() -> None:
         fail("device", "torch.cuda.is_available() is false", 2)
 
     smi, name = phase_device()
-    phase_build()
+    base = baselines(args.baseline)
+    phase_build(base)
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
         launches, calls = phase_e2e(args.seed, args.genome_len, wd, args.profile)
     if not all(launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
         fail("e2e", f"a kernel was never launched on the main path: {launches}")
-    ksum = phase_kernels(calls)
+    ksum = phase_kernels(calls, base)
     emit(kernels_line(ksum, launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

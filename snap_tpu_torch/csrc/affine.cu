@@ -6,298 +6,422 @@
 // (finish_extend) stays torch code, as in snap_tpu. Plain PyTorch
 // version: snap_tpu_torch/ops/affine.py affine_extend_core_plain.
 //
-// Work: per candidate row, a Gotoh DP over tlen text rows and L pattern
-// columns: H floored at 0 against score_init, E (deletion) per column,
-// F (insertion) as an in-row max-plus prefix scan whose ties prefer the
-// later run start. Each row updates the best global score (column
-// plen-1; ties to the latest row) and the best local score (ties to the
-// earliest row, then the largest column), each with its row, column,
-// log-probability and packed (mismatch, insertion, deletion) counts.
+// Work: per candidate row, a Gotoh DP over tlen text rows and plen
+// pattern columns: H floored at 0 against score_init, E (deletion) per
+// column, F (insertion) as an in-row max-plus prefix whose ties prefer
+// the later run start. Each text row updates the best global score
+// (column plen-1; ties to the latest row) and the best local score (ties
+// to the earliest row, then the largest column), each with its row,
+// column, log-probability and packed (mismatch, insertion, deletion)
+// counts.
 //
 // What bounds it on this card: operations. A row reads 5L+T bytes and
 // writes 36, but its plen * tlen cells each take 44 integer (compare,
 // select, add) and 7 float operations of the plain recurrence, in a
 // row-to-row dependent chain.
 //
-// Design: one warp per candidate row; each lane owns C consecutive
-// pattern columns in registers (H, E and their log-probs and counts,
-// plus the pattern bases and phred log-errors), so the row loop touches
-// device memory only for one text base per row. The diagonal move takes
-// the left neighbour's previous H by __shfl_up_sync; the F scan is a
-// lane-local pass, a 5-step __shfl_up_sync scan over lane aggregates
-// carrying (value, log-prob, counts, column), and a second local pass —
-// the explicit column replaces the TPU kernel's low-bit packing. The
-// row readouts are warp reductions. The loop stops at tlen (the plain
-// version freezes every later row). Float arithmetic is
-// __fadd_rn/__fmul_rn in the plain version's order (and -fmad=false),
-// so the log-probabilities match it bit for bit.
+// What held the first design back (one warp per row, every lane on the
+// same text row): (a) it sized the columns per lane from L, so every row
+// computed all L = 128 columns for every text row although plen <= 76 on
+// the main path (2-4x the live cells); (b) the F prefix was a 5-step
+// warp scan over four values, about 40 shuffles per text row in all;
+// (c) both readouts were warp reductions on every text row.
+//
+// This design:
+// - Work follows plen x tlen, planned on the device (no host read). A
+//   plan kernel takes windows of 32 rows, one warp each: it sorts them by
+//   (plen, tlen) with a warp bitonic sort and cuts them into passes; a
+//   pass puts 32/G rows of similar size in one warp, G lanes each
+//   (G = 8, 16 or 32), with C = ceil(max plen / G) <= 5 columns per lane
+//   (<= 8 past 160 columns; a template instance per (G, C)), so a lane
+//   computes only columns that a row of its pass has. Persistent single-warp blocks of a second
+//   kernel then take passes one at a time from a shared counter, so a
+//   short pass never holds a block of long ones back.
+// - No scan. Within a row's G lanes the DP runs as an anti-diagonal
+//   wavefront: lane k owns columns [kC, kC + C) and works on text row
+//   s - k at step s, so the F carry (value, log-prob, counts, run start)
+//   and the left column's H arrive from lane k - 1 by one shuffle each,
+//   seven per step. Lane 0 computes the column -1 boundary itself.
+// - Readouts are kept per lane over its own cells and reduced once per
+//   row at the end: global at the lane holding column plen-1 (>= over
+//   rows), local by (larger value, earlier row, larger column).
+// Float arithmetic is __fadd_rn/__fmul_rn in the plain version's order
+// (and -fmad=false); the F log-prob is fadd(rlp, fmul(j - rj - 1,
+// log_ext)) from the carried run start, so the log-probabilities match
+// the plain version bit for bit.
 
 #include <cuda_runtime.h>
-
-#include <climits>
 
 namespace {
 
 constexpr int kNegI = -(1 << 29);
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWindow = 32;  // rows sorted and planned together
+constexpr int kPlanWarps = 4;
+constexpr int kPassWarpsPerSM = 16;  // resident at <= 128 registers
 
-template <int C>
-__global__ void __launch_bounds__(128) affine_kernel(
-    const unsigned char* __restrict__ pat, const float* __restrict__ logq,
-    const int* __restrict__ plen, const unsigned char* __restrict__ text,
-    const int* __restrict__ tlen, const int* __restrict__ sinit,
-    int* __restrict__ out_i, float* __restrict__ out_f, int N, int L, int T,
-    int MATCH, int SUB, int OPEN, int EXT, float log_open, float log_ext,
-    float neg_f) {
-  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// out_i holds the N x 7 outputs, then (at a 16-byte boundary) the plan:
+// a 4-int header (long passes planned, short passes planned, passes
+// taken) and N slots of pass records, 8 ints each: the rows of its
+// segments (-1: none) and (G << 8) | C. Long passes fill the slots from
+// the front, short ones from the back; there are never more passes than
+// rows. ops/affine_cuda.py allocates it (plan_ints there).
+__host__ __device__ inline long plan_offset(int N) {
+  return ((long)N * 7 + 3) & ~3L;
+}
+
+struct Args {
+  const unsigned char* pat;
+  const float* logq;
+  const int* plen;
+  const unsigned char* text;
+  const int* tlen;
+  const int* sinit;
+  int* out_i;
+  float* out_f;
+  int* plan;
+  int slots;  // warps the pass kernel keeps resident
+  int N, L, T, MATCH, SUB, OPEN, EXT;
+  float log_open, log_ext, neg_f;
+};
+
+__device__ __forceinline__ void write_row(const Args& a, int row, int bg,
+                                          int bg_row, int bg_ct, float bg_lp,
+                                          int bl, int bl_row, int bl_col,
+                                          int bl_ct, float bl_lp) {
+  int* oi = a.out_i + (long)row * 7;
+  oi[0] = bg;
+  oi[1] = bg_row;
+  oi[2] = bg_ct;
+  oi[3] = bl;
+  oi[4] = bl_row;
+  oi[5] = bl_col;
+  oi[6] = bl_ct;
+  a.out_f[(long)row * 2] = bg_lp;
+  a.out_f[(long)row * 2 + 1] = bl_lp;
+}
+
+__device__ __forceinline__ int clamp_len(int v, int hi) {
+  return min(max(v, 0), hi);
+}
+
+// One pass: the 32/G rows of a pass record, G lanes each, C columns per
+// lane. A segment without a row (-1) idles.
+template <int G, int C>
+__device__ __forceinline__ void run_pass(const Args& a, const int* rec) {
   const int lane = threadIdx.x & 31;
-  if (row >= N) return;  // uniform per warp
-  const int base = lane * C;
-  const int pl = plen[row];
-  const int tl = min(tlen[row], T);
-  const int si = sinit[row];
+  const int seg = lane / G, k = lane % G;
+  const int rid = rec[seg];
+  const bool has_row = rid >= 0;
+  int row = 0, pl = 0, tl = 0;
+  if (has_row) {
+    row = rid;
+    pl = clamp_len(a.plen[row], a.L);
+    tl = clamp_len(a.tlen[row], a.T);
+  }
+  const int nl = (pl + C - 1) / C;  // lanes with columns in this row
+  const bool active = k < nl;
+  const int base = k * C;
+  const int OPEN = a.OPEN, EXT = a.EXT;
+  const float log_open = a.log_open, log_ext = a.log_ext;
+  const int si = active ? a.sinit[row] : 0;
+  const long prow = (long)row * a.L;
 
-  int pc[C], h[C], hct[C], e[C], ect[C];
-  float lq[C], hlp[C], elp[C];
+  int pc[C], sx[C], kb[C], h[C], hc[C], e[C], ec[C];
+  float lq[C], hl[C], el[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = base + c;
-    const bool real = j < L;
-    pc[c] = real ? (int)pat[row * L + j] : 4;
-    lq[c] = real ? logq[row * L + j] : 0.0f;
+    const bool live = active && j < pl;
+    pc[c] = live ? (int)a.pat[prow + j] : 0;
+    lq[c] = live ? a.logq[prow + j] : 0.0f;
+    sx[c] = pc[c] >= 4 ? -1 : -a.SUB;  // mismatch score (N pattern: -1)
+    kb[c] = live ? c : -(1 << 30);     // local-readout key; dead never wins
     // row -1: leading pattern insertions charged from score_init
-    h[c] = (real && j < pl) ? max(0, si - OPEN - j * EXT) : kNegI;
-    hlp[c] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
-    hct[c] = (j + 1) << 10;
+    h[c] = live ? max(0, si - OPEN - j * EXT) : kNegI;
+    hl[c] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
+    hc[c] = (j + 1) << 10;
     e[c] = 0;
-    elp[c] = neg_f;
-    ect[c] = 0;
+    el[c] = a.neg_f;
+    ec[c] = 0;
   }
-  const int last_col = min(max(pl - 1, 0), L - 1);
-  const int lc_lane = last_col / C, lc_c = last_col % C;
+  // diagonal input of column `base` at the current row: H(i-1, base-1);
+  // column -1 at row -1 is score_init itself
+  int dh, dc;
+  float dl;
+  if (k == 0) {
+    dh = si;
+    dl = 0.0f;
+    dc = 0;
+  } else {
+    dh = max(0, si - OPEN - (base - 1) * EXT);
+    dl = __fadd_rn(__fmul_rn((float)(base - 1), log_ext), log_open);
+    dc = base << 10;
+  }
+  // what this lane hands lane k+1: H of its last column and the F carry
+  // after it, for the row it just finished
+  int oh = 0, ohc = 0, orv = kNegI, orct = 0;
+  float ohl = 0.0f, orlp = 0.0f, orj = 0.0f;
 
+  const int cstar = active ? pl - 1 - base : -1;  // global column's slot
   int bg = -1, bg_row = 0, bg_ct = 0;
-  float bg_lp = neg_f;
+  float bg_lp = a.neg_f;
   int bl = -1, bl_row = 0, bl_col = 0, bl_ct = 0;
-  float bl_lp = neg_f;
+  float bl_lp = a.neg_f;
 
-  for (int i = 0; i < tl; ++i) {
-    const int tb = text[row * T + i];
-    int h_init, hct_init;
-    float hlp_init;
-    if (i == 0) {
-      h_init = si;
-      hlp_init = 0.0f;
-      hct_init = 0;
-    } else {
-      h_init = max(0, si - OPEN - (i - 1) * EXT);
-      hlp_init = __fadd_rn(log_open, __fmul_rn((float)(i - 1), log_ext));
-      hct_init = i;  // one deletion per text row consumed
+  const int baseE = base * EXT;
+  const int baseS = base << 10;
+  const float basef = (float)base;
+  const int steps = __reduce_max_sync(kFull, active ? tl + nl - 1 : 0);
+  const unsigned char* trow = a.text + (long)row * a.T;
+
+  for (int s = 0; s < steps; ++s) {
+    int ih = __shfl_up_sync(kFull, oh, 1, G);
+    float ihl = __shfl_up_sync(kFull, ohl, 1, G);
+    int ihc = __shfl_up_sync(kFull, ohc, 1, G);
+    int rv = __shfl_up_sync(kFull, orv, 1, G);
+    float rlp = __shfl_up_sync(kFull, orlp, 1, G);
+    int rct = __shfl_up_sync(kFull, orct, 1, G);
+    const float rjf = __shfl_up_sync(kFull, orj, 1, G);
+    const int i = s - k;
+    if (k == 0) {
+      // column -1 at row i (the next row's h_init): i + 1 deletions
+      ih = max(0, si - OPEN - i * EXT);
+      ihl = __fadd_rn(log_open, __fmul_rn((float)i, log_ext));
+      ihc = i + 1;
+      rv = kNegI;  // no insertion run enters column 0
     }
-    const int lh = __shfl_up_sync(kFull, h[C - 1], 1);
-    const float llp = __shfl_up_sync(kFull, hlp[C - 1], 1);
-    const int lct = __shfl_up_sync(kFull, hct[C - 1], 1);
-
-    int mm[C], mct[C], adj[C];
-    float mlp[C], slp[C];
+    if (!(active && i >= 0 && i < tl)) continue;
+    const int tb = trow[i];
+    const bool tbn = tb >= 4;
+    // carry: rv = best max(M - OPEN, 0) + l * EXT over columns l < j,
+    // rlp its open log-prob, rct its counts less (l << 10), rj = l - base
+    float rj = __fsub_rn(rjf, basef);
+    int hd = dh, hdc = dc;
+    float hdl = dl;
+    int rk = -1, rkc = 0, gv = 0, gc = 0;
+    float rkl = 0.0f, gl = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int j = base + c;
-      int hd, hdc;
-      float hdl;
-      if (j == 0) {
-        hd = h_init;
-        hdl = hlp_init;
-        hdc = hct_init;
-      } else if (c == 0) {
-        hd = lh;
-        hdl = llp;
-        hdc = lct;
-      } else {
-        hd = h[c > 0 ? c - 1 : 0];
-        hdl = hlp[c > 0 ? c - 1 : 0];
-        hdc = hct[c > 0 ? c - 1 : 0];
-      }
-      const bool is_n = tb >= 4 || pc[c] >= 4;
       const bool eq = tb == pc[c];
-      const int s = is_n ? -1 : (eq ? MATCH : -SUB);
-      mm[c] = hd > 0 ? hd + s : 0;
-      mlp[c] = __fadd_rn(hdl, eq ? 0.0f : lq[c]);
-      mct[c] = hdc + (eq ? 0 : (1 << 20));
-      adj[c] = max(mm[c] - OPEN, 0) + j * EXT;
-      slp[c] = __fadd_rn(mlp[c], log_open);
-    }
-
-    // F: prefix max of adj, ties to the later column, carrying
-    // (log-prob, counts, column) of the argmax
-    int av = adj[0], act = mct[0], aj = base;
-    float alp = slp[0];
-#pragma unroll
-    for (int c = 1; c < C; ++c) {
-      if (adj[c] >= av) {
-        av = adj[c];
-        alp = slp[c];
-        act = mct[c];
-        aj = base + c;
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int ov = __shfl_up_sync(kFull, av, off);
-      const float olp = __shfl_up_sync(kFull, alp, off);
-      const int oct = __shfl_up_sync(kFull, act, off);
-      const int oj = __shfl_up_sync(kFull, aj, off);
-      if (lane >= off && ov > av) {
-        av = ov;
-        alp = olp;
-        act = oct;
-        aj = oj;
-      }
-    }
-    int rv = __shfl_up_sync(kFull, av, 1);
-    float rlp = __shfl_up_sync(kFull, alp, 1);
-    int rct = __shfl_up_sync(kFull, act, 1);
-    int rj = __shfl_up_sync(kFull, aj, 1);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = base + c;
-      int f, fct;
-      float flp;
-      if (j == 0) {
-        f = kNegI;
-        flp = neg_f;
-        fct = 0;
-        rv = adj[c];
-        rlp = slp[c];
-        rct = mct[c];
-        rj = j;
-      } else {
-        const int rm1 = j - rj - 1;
-        f = rv - (j - 1) * EXT;
-        flp = __fadd_rn(rlp, __fmul_rn((float)rm1, log_ext));
-        fct = rct + ((rm1 + 1) << 10);
-        if (adj[c] >= rv) {
-          rv = adj[c];
-          rlp = slp[c];
-          rct = mct[c];
-          rj = j;
-        }
+      int sc = eq ? a.MATCH : sx[c];
+      sc = tbn ? -1 : sc;
+      const int m = hd > 0 ? hd + sc : 0;
+      const float mlp = __fadd_rn(hdl, eq ? 0.0f : lq[c]);
+      const int mct = hdc + (eq ? 0 : (1 << 20));
+      const int t = max(m - OPEN, 0);
+      const int adj = t + baseE + c * EXT;
+      const float slp = __fadd_rn(mlp, log_open);
+      // F at j = base + c from the run start carried over columns < j
+      const int f = rv - baseE - (c - 1) * EXT;
+      const float flp = __fadd_rn(
+          rlp, __fmul_rn(__fsub_rn((float)(c - 1), rj), log_ext));
+      const int fct = rct + baseS + (c << 10);
+      if (adj >= rv) {  // ties: the later run start
+        rv = adj;
+        rlp = slp;
+        rct = mct - baseS - (c << 10);
+        rj = (float)c;
       }
       // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
-      const bool te = e[c] > mm[c];
-      int hh = te ? e[c] : mm[c];
-      float hl = te ? elp[c] : mlp[c];
-      int hc = te ? ect[c] : mct[c];
+      const bool te = e[c] > m;
+      int hh = te ? e[c] : m;
+      float hhl = te ? el[c] : mlp;
+      int hhc = te ? ec[c] : mct;
       if (f > hh) {
         hh = f;
-        hl = flp;
-        hc = fct;
+        hhl = flp;
+        hhc = fct;
       }
-      if (!(j < pl && j < L)) hh = kNegI;
       // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
       const int e_ext = e[c] - EXT;
-      const int t_del = max(mm[c] - OPEN, 0);
-      const bool tx = e_ext > t_del;
-      const int en = tx ? e_ext : t_del;
-      const float eln =
-          tx ? __fadd_rn(elp[c], log_ext) : __fadd_rn(mlp[c], log_open);
-      const int ecn = (tx ? ect[c] : mct[c]) + 1;
+      const bool tx = e_ext > t;
+      const float eln = tx ? __fadd_rn(el[c], log_ext) : slp;
+      ec[c] = (tx ? ec[c] : mct) + 1;
+      e[c] = tx ? e_ext : t;
+      el[c] = eln;
+      // the old H is the next column's diagonal input
+      hd = h[c];
+      hdl = hl[c];
+      hdc = hc[c];
       h[c] = hh;
-      hlp[c] = hl;
-      hct[c] = hc;
-      e[c] = en;
-      elp[c] = eln;
-      ect[c] = ecn;
-    }
-
-    // global readout at column plen-1; ties move to the later row
-    int gv = 0, gc = 0;
-    float gl = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c == lc_c) {
-        gv = h[c];
-        gl = hlp[c];
-        gc = hct[c];
+      hl[c] = hhl;
+      hc[c] = hhc;
+      // local: the row's best of this lane's columns, ties to the larger
+      const int key = hh * 16 + kb[c];
+      if (key > rk) {
+        rk = key;
+        rkl = hhl;
+        rkc = hhc;
+      }
+      if (c == cstar) {
+        gv = hh;
+        gl = hhl;
+        gc = hhc;
       }
     }
-    gv = __shfl_sync(kFull, gv, lc_lane);
-    gl = __shfl_sync(kFull, gl, lc_lane);
-    gc = __shfl_sync(kFull, gc, lc_lane);
-    if (gv >= bg) {
+    oh = h[C - 1];
+    ohl = hl[C - 1];
+    ohc = hc[C - 1];
+    orv = rv;
+    orlp = rlp;
+    orct = rct;
+    orj = __fadd_rn(rj, basef);
+    dh = ih;
+    dl = ihl;
+    dc = ihc;
+    if (cstar >= 0 && cstar < C && gv >= bg) {  // ties: the later row
       bg = gv;
       bg_row = i;
       bg_lp = gl;
       bg_ct = gc;
     }
-
-    // local readout: max over real columns, ties to the largest column
-    int rmax = INT_MIN, cmax = -1;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = base + c;
-      if (j < L && (h[c] > rmax || (h[c] == rmax && j > cmax))) {
-        rmax = h[c];
-        cmax = j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int orm = __shfl_xor_sync(kFull, rmax, off);
-      const int ocm = __shfl_xor_sync(kFull, cmax, off);
-      if (orm > rmax || (orm == rmax && ocm > cmax)) {
-        rmax = orm;
-        cmax = ocm;
-      }
-    }
-    if (rmax > bl) {  // uniform across the warp
-      const int own = cmax / C, oc = cmax % C;
-      int lc = 0;
-      float ll = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (c == oc) {
-          ll = hlp[c];
-          lc = hct[c];
-        }
-      }
-      ll = __shfl_sync(kFull, ll, own);
-      lc = __shfl_sync(kFull, lc, own);
-      bl = rmax;
+    if ((rk >> 4) > bl) {  // strictly greater: the earlier row keeps it
+      bl = rk >> 4;
       bl_row = i;
-      bl_col = cmax;
-      bl_lp = ll;
-      bl_ct = lc;
+      bl_col = base + (rk & 15);
+      bl_lp = rkl;
+      bl_ct = rkc;
     }
   }
 
+  // global: from the lane that holds column plen-1
+  const int src = seg * G + (pl > 0 ? (pl - 1) / C : 0);
+  bg = __shfl_sync(kFull, bg, src);
+  bg_row = __shfl_sync(kFull, bg_row, src);
+  bg_ct = __shfl_sync(kFull, bg_ct, src);
+  bg_lp = __shfl_sync(kFull, bg_lp, src);
+  // local: larger value, then the earlier row, then the larger column
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, bl, off, G);
+    const int orow = __shfl_xor_sync(kFull, bl_row, off, G);
+    const int ocol = __shfl_xor_sync(kFull, bl_col, off, G);
+    const int oct = __shfl_xor_sync(kFull, bl_ct, off, G);
+    const float olp = __shfl_xor_sync(kFull, bl_lp, off, G);
+    if (ov > bl ||
+        (ov == bl && (orow < bl_row || (orow == bl_row && ocol > bl_col)))) {
+      bl = ov;
+      bl_row = orow;
+      bl_col = ocol;
+      bl_ct = oct;
+      bl_lp = olp;
+    }
+  }
+  if (k == 0 && has_row)
+    write_row(a, row, bg, bg_row, bg_ct, bg_lp, bl, bl_row, bl_col, bl_ct,
+              bl_lp);
+}
+
+// Lanes per row of a pass whose largest row has mp columns: the
+// narrowest G with C = ceil(mp / G) <= 5, so that a lane's columns stay
+// in registers at 16 warps per SM; 32 beyond 160 columns (C <= 8). With
+// fewer than 4 rows per resident warp, every pass takes one row on 32
+// lanes, so that the few rows still occupy the card.
+__device__ __forceinline__ int pass_width(int mp, bool wide) {
+  return wide ? 32 : (mp <= 40 ? 8 : (mp <= 80 ? 16 : 32));
+}
+
+__device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
+  const int G = rec[4] >> 8, C = rec[4] & 0xff;
+#define SNAP_AG_PASS(GG, CC)     \
+  if (G == GG && C == CC) {      \
+    run_pass<GG, CC>(a, rec);    \
+    return;                      \
+  }
+  SNAP_AG_PASS(8, 1)
+  SNAP_AG_PASS(8, 2)
+  SNAP_AG_PASS(8, 3)
+  SNAP_AG_PASS(8, 4)
+  SNAP_AG_PASS(8, 5)
+  SNAP_AG_PASS(16, 3)
+  SNAP_AG_PASS(16, 4)
+  SNAP_AG_PASS(16, 5)
+  SNAP_AG_PASS(32, 1)
+  SNAP_AG_PASS(32, 2)
+  SNAP_AG_PASS(32, 3)
+  SNAP_AG_PASS(32, 4)
+  SNAP_AG_PASS(32, 5)
+  SNAP_AG_PASS(32, 6)
+  SNAP_AG_PASS(32, 7)
+  SNAP_AG_PASS(32, 8)
+#undef SNAP_AG_PASS
+}
+
+// One warp per window of 32 rows: rows without a cell get the initial
+// readouts; the others are sorted by (plen, tlen), largest first, and cut
+// into passes: the next 32/G rows share a warp, G lanes each, with
+// C = ceil(max plen / G) columns per lane (the first row of a pass is
+// its largest). The passes go to the plan in out_i, those over rows of
+// more than 40 columns to the long list, which is taken first.
+__global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
+  const int lane = threadIdx.x & 31;
+  const long r0 =
+      ((long)blockIdx.x * kPlanWarps + (threadIdx.x >> 5)) * kWindow;
+  if (r0 >= a.N) return;  // uniform per warp
+  const long row = r0 + lane;
+  int pl = 0, tl = 0;
+  if (row < a.N) {
+    pl = clamp_len(a.plen[row], a.L);
+    tl = clamp_len(a.tlen[row], a.T);
+  }
+  const bool live = pl > 0 && tl > 0;
+  if (row < a.N && !live)
+    write_row(a, (int)row, -1, 0, 0, a.neg_f, -1, 0, 0, 0, a.neg_f);
+  int key = live ? (pl << 14) | (min(tl, 511) << 5) | lane : lane;
+#pragma unroll
+  for (int kk = 2; kk <= 32; kk <<= 1) {
+#pragma unroll
+    for (int jj = kk >> 1; jj > 0; jj >>= 1) {
+      const int other = __shfl_xor_sync(kFull, key, jj);
+      const bool lower = (lane & jj) == 0;
+      const bool desc = (lane & kk) == 0;
+      key = (lower == desc) ? max(key, other) : min(key, other);
+    }
+  }
+  // lane q now holds the q-th largest row
+  const int nlive = __popc(__ballot_sync(kFull, live));
+  const int srow = (int)r0 + (key & 31);
+  const int spl = key >> 14;
+  const bool wide = a.N < 4 * a.slots;
+  int nlong = 0, nshort = 0;
+  for (int q = 0; q < nlive;) {
+    const int mp = __shfl_sync(kFull, spl, q);
+    ++(mp > 40 ? nlong : nshort);
+    q += 32 / pass_width(mp, wide);
+  }
+  int blong = 0, bshort = 0;
   if (lane == 0) {
-    int* oi = out_i + row * 7;
-    oi[0] = bg;
-    oi[1] = bg_row;
-    oi[2] = bg_ct;
-    oi[3] = bl;
-    oi[4] = bl_row;
-    oi[5] = bl_col;
-    oi[6] = bl_ct;
-    out_f[row * 2] = bg_lp;
-    out_f[row * 2 + 1] = bl_lp;
+    if (nlong) blong = atomicAdd(&a.plan[0], nlong);
+    if (nshort) bshort = atomicAdd(&a.plan[1], nshort);
+  }
+  blong = __shfl_sync(kFull, blong, 0);
+  bshort = __shfl_sync(kFull, bshort, 0);
+  for (int q = 0; q < nlive;) {
+    const int mp = __shfl_sync(kFull, spl, q);
+    const int G = pass_width(mp, wide);
+    const int R = 32 / G;
+    const int rr = __shfl_sync(kFull, srow, min(q + lane, 31));
+    const long slot = mp > 40 ? blong++ : a.N - 1 - bshort++;
+    int* rec = a.plan + 4 + 8 * slot;
+    if (lane < 4) rec[lane] = (lane < R && q + lane < nlive) ? rr : -1;
+    if (lane == 4) rec[4] = (G << 8) | ((mp + G - 1) / G);
+    q += R;
   }
 }
 
-template <int C>
-void launch(const void* pat, const void* logq, const void* plen,
-            const void* text, const void* tlen, const void* sinit,
-            void* out_i, void* out_f, int N, int L, int T, int MATCH, int SUB,
-            int OPEN, int EXT, float log_open, float log_ext, float neg_f,
-            cudaStream_t stream) {
-  const int threads = 128;  // 4 rows per block
-  const long blocks = ((long)N * 32 + threads - 1) / threads;
-  affine_kernel<C><<<(unsigned)blocks, threads, 0, stream>>>(
-      (const unsigned char*)pat, (const float*)logq, (const int*)plen,
-      (const unsigned char*)text, (const int*)tlen, (const int*)sinit,
-      (int*)out_i, (float*)out_f, N, L, T, MATCH, SUB, OPEN, EXT, log_open,
-      log_ext, neg_f);
+// Persistent warps, each taking the next pass of the plan (the long
+// ones first) until none is left.
+__global__ void __launch_bounds__(32, kPassWarpsPerSM) pass_kernel(const Args a) {
+  const int nlong = a.plan[0], total = nlong + a.plan[1];
+  for (;;) {
+    int t = 0;
+    if (threadIdx.x == 0) t = atomicAdd(&a.plan[2], 1);
+    t = __shfl_sync(kFull, t, 0);
+    if (t >= total) return;
+    const long slot = t < nlong ? t : a.N - 1 - (t - nlong);
+    dispatch(a, a.plan + 4 + 8 * slot);
+  }
 }
 
 }  // namespace
@@ -309,22 +433,26 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
                                     int T, int MATCH, int SUB, int OPEN,
                                     int EXT, float log_open, float log_ext,
                                     float neg_f, void* stream) {
-  if (N <= 0 || L <= 0) return (int)cudaGetLastError();
-  const int need = (L + 31) / 32;  // pattern columns per lane
-  cudaStream_t s = (cudaStream_t)stream;
-#define SNAP_AG_CASE(CC)                                                    \
-  if (need <= CC) {                                                         \
-    launch<CC>(pat, logq, plen, text, tlen, sinit, out_i, out_f, N, L, T,   \
-               MATCH, SUB, OPEN, EXT, log_open, log_ext, neg_f, s);         \
-    return (int)cudaGetLastError();                                         \
+  if (N <= 0) return (int)cudaGetLastError();
+  if (L > 256) return (int)cudaErrorInvalidValue;  // C <= 8 at G = 32
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  SNAP_AG_CASE(1)
-  SNAP_AG_CASE(2)
-  SNAP_AG_CASE(3)
-  SNAP_AG_CASE(4)
-  SNAP_AG_CASE(5)
-  SNAP_AG_CASE(6)
-  SNAP_AG_CASE(8)
-#undef SNAP_AG_CASE
-  return (int)cudaErrorInvalidValue;  // L > 256
+  int* plan = (int*)out_i + plan_offset(N);
+  const int slots = sms * kPassWarpsPerSM;
+  const Args a{(const unsigned char*)pat, (const float*)logq,
+               (const int*)plen, (const unsigned char*)text,
+               (const int*)tlen, (const int*)sinit, (int*)out_i,
+               (float*)out_f, plan, slots, N, L, T, MATCH, SUB, OPEN, EXT,
+               log_open, log_ext, neg_f};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(plan, 0, 3 * sizeof(int), s);
+  const long windows = ((long)N + kWindow - 1) / kWindow;
+  plan_kernel<<<(unsigned)((windows + kPlanWarps - 1) / kPlanWarps),
+                kPlanWarps * 32, 0, s>>>(a);
+  pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -12,21 +12,38 @@
 // What bounds it on this card: bytes. Each pair reads 2*PW text/bad
 // words (64 B at PW=8) and writes 8 B; the per-read pattern words and
 // the L floats of logq are shared by the K candidates of a read. The
-// arithmetic (a few integer ops per word plus L selects and adds) is far
+// arithmetic (a few integer ops per word, one add per mismatch) is far
 // below the card's integer rate.
 //
-// Design: one thread per (read, candidate). Threads of one read sit next
+// What held the first design back: each thread walked all 16*PW
+// positions in one dependent chain of float adds, a load and a branch
+// per position, however few bits were set.
+//
+// Design: one thread per (read, candidate); threads of one read sit next
 // to each other, so the per-read pattern words and logq row are fetched
-// once from device memory and served to the K threads from L1. The
-// logp sum takes the fixed order of ops/sums.py (windows of 32
-// positions), one rounded float add at a time (built with -fmad=false),
-// so it matches the plain version bit for bit.
+// once from device memory and served to the K threads from L1. Per
+// packed word, the logq terms of its set mismatch bits are fetched
+// together (16 predicated loads in flight instead of one dependent load
+// per position) and then added in position order, skipping the clear
+// bits, in the fixed order of ops/sums.py (windows of 32 positions, each
+// summed from +0.0, then the window sums from +0.0), one rounded float
+// add at a time (built with -fmad=false). The adds it skips are +0.0
+// terms and empty windows: ln P(error) is never -0.0
+// (align/pipeline.py device_logq), so neither is a partial sum, and
+// adding +0.0 changes no bit. So it matches the plain version bit for
+// bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kEven = 0x55555555u;
+
+// the even bits of the first n (clamped to 0..16) positions of a word
+__device__ __forceinline__ unsigned even_below(int n) {
+  const int r = min(max(n, 0), 16);
+  return r >= 16 ? kEven : (((1u << (2 * r)) - 1u) & kEven);
+}
 
 __global__ void gapless_kernel(
     const unsigned* __restrict__ tw, const unsigned* __restrict__ bw,
@@ -47,31 +64,36 @@ __global__ void gapless_kernel(
   const float* lq = (rc ? lqr : lqf) + b * L;
   int pl = plen[b];
   // summation order of ops/sums.py ordered_sum: windows of 32
-  // positions starting `lo` positions before position 0, each summed
-  // from +0.0, then the window sums from +0.0 (L <= 1024: one level)
+  // positions starting `lo` positions before position 0 (one window
+  // when L <= 32), then the window sums (L <= 1024: one level)
   const int lo = L <= 32 ? 0 : ((32 - L % 32) % 32) / 2;
+  const int wsh = L <= 32 ? 31 : 5;
   int d = 0;
   float total = 0.0f, wacc = 0.0f;
   int cur = 0;
   for (int w = 0; w < PW; ++w) {
     unsigned x = __ldg(t + w) ^ __ldg(pw + w);
-    int r16 = min(max(pl - 16 * w, 0), 16);
-    unsigned mask =
-        r16 >= 16 ? kEven : (((1u << (2 * r16)) - 1u) & kEven);
     unsigned m =
-        (((x | (x >> 1)) & kEven) | __ldg(tb + w) | __ldg(pb + w)) & mask;
+        (((x | (x >> 1)) & kEven) | __ldg(tb + w) | __ldg(pb + w)) &
+        even_below(pl - 16 * w);
     d += __popc(m);
-    int pend = min(16, L - 16 * w);
-    for (int i = 0; i < pend; ++i) {
-      const int p = 16 * w + i;
-      const int win = L <= 32 ? 0 : (p + lo) >> 5;
+    m &= even_below(L - 16 * w);  // logq has L positions
+    // the word's ln P(error) terms, fetched together, then added in
+    // position order
+    float v[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      v[u] = (m >> (2 * u)) & 1u ? __ldg(lq + 16 * w + u) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (!((m >> (2 * u)) & 1u)) continue;
+      const int win = (16 * w + u + lo) >> wsh;
       if (win != cur) {
         total = __fadd_rn(total, wacc);
         wacc = 0.0f;
         cur = win;
       }
-      float v = ((m >> (2 * i)) & 1u) ? __ldg(lq + p) : 0.0f;
-      wacc = __fadd_rn(wacc, v);
+      wacc = __fadd_rn(wacc, v[u]);
     }
   }
   dist[idx] = d;

@@ -2,12 +2,17 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc into its own shared library
 with a plain C interface (`build/lib<name>.so`) and loaded with ctypes.
-Nothing is built when the package is imported: `load(name)` builds on
-the first call, and `build_all()` starts one nvcc per source at once.
+Nothing is built when the package is imported: a `Kernel` builds and
+binds its library on its first call, and `build_all()` starts one nvcc
+per source at once. `add_source` registers another source of the same C
+interface under a name of its own (say, a kernel as an earlier commit
+had it), which `Kernel.using` puts in place of the package's for a
+comparison on the same inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -31,6 +36,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_sources: dict[str, str] = {}    # name -> .cu path outside csrc/
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc's output (ptxas -v lines)
 
 
@@ -45,12 +51,21 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def add_source(name: str, path: str) -> None:
+    """Build library `name` from `path` instead of csrc/<name>.cu."""
+    _sources[name] = os.path.abspath(path)
+
+
+def _src_path(name: str) -> str:
+    return _sources.get(name) or os.path.join(CSRC_DIR, f"{name}.cu")
+
+
 def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def _fresh(name: str) -> bool:
-    so, src = _lib_path(name), os.path.join(CSRC_DIR, f"{name}.cu")
+    so, src = _lib_path(name), _src_path(name)
     return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src)
 
 
@@ -66,7 +81,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
     procs = {}
     for n in todo:
         tmp = _lib_path(n) + f".tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _src_path(n)]
         procs[n] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -80,7 +95,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
         secs[n] = time.time() - t0
         BUILD_LOG[n] = out
         if p.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+            errors.append(f"nvcc failed for {_src_path(n)}:\n{out}")
         else:
             os.replace(tmp, _lib_path(n))
     if errors:
@@ -97,6 +112,36 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+class Kernel:
+    """The C launch function `symbol` of library `name`, bound with its
+    argument types once, at its first call."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name, self.symbol, self.argtypes = name, symbol, list(argtypes)
+        self._fn = None
+
+    def bind(self, name: str):
+        fn = getattr(load(name), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> int:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = self.bind(self.name)
+        return fn(*args)
+
+    @contextlib.contextmanager
+    def using(self, name: str):
+        """Within the block, calls launch library `name`'s function."""
+        saved, self._fn = self._fn, self.bind(name)
+        try:
+            yield
+        finally:
+            self._fn = saved
 
 
 def check(err: int, what: str) -> None:

@@ -25,17 +25,21 @@ from .affine import (
 )
 from ..constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
 
-MAX_L = 256  # 8 pattern columns per lane of one warp
+MAX_L = 256  # 8 pattern columns per lane of a 32-lane row
 
 
-def _lib():
-    fn = _build.load("affine").affine_extend_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+def plan_ints(N: int) -> int:
+    """int32 words of the kernel's out_i: the N x 7 outputs, then at a
+    16-byte boundary the device-side pass plan (a 4-int header and up to
+    N records of 8 ints; csrc/affine.cu plan_offset)."""
+    return ((7 * N + 3) & ~3) + 4 + 8 * N
+
+
+KERNEL = _build.Kernel(
+    "affine", "affine_extend_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+    + [ctypes.c_void_p],
+)
 
 
 def affine_extend_core_cuda(
@@ -68,10 +72,10 @@ def affine_extend_core_cuda(
             raise ValueError(f"affine_extend_core_cuda: {name} not contiguous")
     if L > MAX_L:
         raise ValueError(f"affine_extend_core_cuda: L = {L} > {MAX_L}")
-    out_i = torch.empty((N, 7), dtype=torch.int32, device=dev)
+    out_i = torch.empty((plan_ints(N),), dtype=torch.int32, device=dev)
     out_f = torch.empty((N, 2), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _lib()(
+    err = KERNEL(
         p(pattern), p(pat_logq), p(plen), p(text), p(tlen), p(score_init),
         p(out_i), p(out_f), N, L, T, match, sub, gap_open + gap_extend,
         gap_extend, LOG_GAP_OPEN, LOG_GAP_EXTEND, NEG_F,
@@ -79,6 +83,7 @@ def affine_extend_core_cuda(
     )
     _build.check(err, "affine_extend")
     affine_extend_core_cuda.launches += 1
+    out_i = out_i[: 7 * N].view(N, 7)
     return ExtendBest(
         out_i[:, 0], out_i[:, 1], out_f[:, 0], out_i[:, 2],
         out_i[:, 3], out_i[:, 4], out_i[:, 5], out_f[:, 1], out_i[:, 6],

@@ -23,14 +23,11 @@ from .dp import (
 MAX_COLS = 512  # W + 1: 16 columns per lane of one warp
 
 
-def _lib():
-    fn = _build.load("dp").fitting_dp_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+KERNEL = _build.Kernel(
+    "dp", "fitting_dp_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+    + [ctypes.c_void_p],
+)
 
 
 def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
@@ -63,7 +60,7 @@ def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
     lp = torch.empty((N,), dtype=torch.float32, device=dev)
     end = torch.empty((N,), dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = _lib()(
+    err = KERNEL(
         p(pattern), p(pat_logq), p(plen), p(text), p(packed), p(lp), p(end),
         N, L, W, int(bool(anchored)), LOG_GAP_OPEN, LOG_GAP_EXTEND, NEG,
         _build.stream_ptr(dev),

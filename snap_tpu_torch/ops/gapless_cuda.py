@@ -13,15 +13,10 @@ import torch
 from . import _build
 from .gapless import gapless_prescreen_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def _lib():
-    lib = _build.load("gapless")
-    fn = lib.gapless_prescreen_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+KERNEL = _build.Kernel(
+    "gapless", "gapless_prescreen_launch",
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
 
 
 def gapless_prescreen_cuda(
@@ -60,7 +55,7 @@ def gapless_prescreen_cuda(
     dist = torch.empty((B, K), dtype=torch.int32, device=dev)
     logp = torch.empty((B, K), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _lib()(
+    err = KERNEL(
         p(text_words), p(bad_words), p(fwd_words), p(rc_words),
         p(fwd_bad), p(rc_bad), p(logq_f), p(logq_r), p(dirs), p(plen),
         p(dist), p(logp), B, K, PW, L, _build.stream_ptr(dev),

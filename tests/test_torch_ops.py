@@ -226,3 +226,15 @@ def test_device_logq_close_to_reference():
     np.testing.assert_allclose(got, np.asarray(jlogq(jnp.asarray(q))), rtol=1e-5, atol=0)
     truth = np.log(phred_to_probability_table()[q.reshape(-1)]).reshape(q.shape)
     np.testing.assert_allclose(got, truth, rtol=1e-5, atol=0)
+
+
+def test_device_logq_has_no_negative_zero():
+    """The gapless kernel sums ln P(error) over the set bits only and
+    skips the plain version's +0.0 terms and empty windows: exact only
+    if no partial sum is -0.0, which holds when every table entry is
+    <= 0 and none is -0.0 (a sum from +0.0 of such values never is)."""
+    from snap_tpu_torch.align.pipeline import device_logq as tlogq
+
+    got = tlogq(torch.arange(256, dtype=torch.uint8)).numpy()
+    assert (got <= 0).all()
+    assert not (np.signbit(got) & (got == 0)).any()
