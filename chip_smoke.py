@@ -9,12 +9,33 @@ Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's name
   build    nvcc builds the three kernels from snap_tpu_torch/csrc
   e2e      the adaptive single-end device step end to end: a 25%-repeat
-           genome of chr21's length written as FASTA, indexed, 16384
+           genome of chr21's length written as FASTA and indexed once by
+           the port's `index` command (the index is then loaded), 16384
            simulated 100 bp reads written as FASTQ and read back, then
            align_winners_device(adaptive=True) with and without phase C;
            checks launch counts, accuracy, and card-vs-CPU winners, and
            times the step (--profile adds a torch.profiler trace). The
            inputs of every kernel launch of the phase-C step are kept.
+  sam      the main path as a user runs it: 65536 simulated 100 bp reads
+           (true position in each name) through `single <index> reads.fq
+           -o out.sam` on the card. First an untimed run with the CLI's
+           defaults (-b 1024) keeps the inputs of every kernel launch of
+           its first RECORD_STEPS steps and of every launch made by the
+           redo paths (score_candidates, score_rows, align_tier1), and
+           replays each against its plain version bit for bit. Then
+           timed runs at -b 1024 and -b 16384: wall time, FASTQ->SAM
+           reads/s, AlignerStats' seconds reading/aligning/writing, the
+           host's seconds in the device step (dispatch and winners wait)
+           and in the redo paths' device calls, record and status
+           counts, the reads of each host branch, each kernel's
+           launches, and whether the native FASTQ scanner and SAM
+           formatter did the work. Fails unless 98% of primary MAPQ >= 10
+           records lie within 30 bp of their true position, unless the
+           first 1024 reads give the same SAM on the card and on the CPU
+           (at most 2 records differing, in MAPQ +-1 only), and on any
+           replayed launch that differs from its plain version.
+           --profile adds a cProfile of a -b 1024 run's host functions
+           (a sam_profile line).
   kernels  each kernel launch of that step replayed on its own inputs,
            against the kernel's plain PyTorch version on the same CUDA
            tensors (every output bit for bit), beside the launch's bound.
@@ -28,10 +49,12 @@ Phases, each printing one JSON line:
            timed on the same launches in turns (baseline, kernel,
            kernel, baseline): how an earlier commit's kernel is put
            beside the current one without committing it.
-Then one {"kernels": [...]} line (per kernel: its launches in the
-phase-C step, and the sums over those launches of its device time, its
-per-call time, its plain version's time and its bound), the card's name
-and power limit, and as the last line {"ok": true, "device": {...}}.
+Then one {"kernels": [...]} line (per kernel: its launches in the timed
+-b 1024 FASTQ->SAM run; the sums over the launches of one 16384-read
+phase-C step of its device time, its per-call time, its plain version's
+time and its bound; the -b 1024 launches replayed), the card's name and
+power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
 snap_tpu_torch is not beside this file. Imports nothing of JAX.
@@ -210,23 +233,40 @@ def kernel_table() -> dict:
 
 
 @contextlib.contextmanager
-def recording(calls: dict):
+def recording(calls: dict, inside: dict | None = None):
     """Within the block the pipeline's kernel wrappers run unchanged, and
     each call's inputs are cloned into calls[name] as the kernel
-    wrapper's (args, kwargs)."""
+    wrapper's (args, kwargs). With `inside` (pipeline function name ->
+    how many of its first calls to follow, None for all), only the
+    launches made within those calls are kept. Blocks nest."""
     import torch
 
     from snap_tpu_torch.align import pipeline
 
     saved = {}
+    depth = [0]
+    for fname, limit in (inside or {}).items():
+        fn = saved[fname] = getattr(pipeline, fname)
+
+        def within(*a, _fn=fn, _limit=limit, _seen=[0], **kw):
+            _seen[0] += 1
+            follow = int(_limit is None or _seen[0] <= _limit)
+            depth[0] += follow
+            try:
+                return _fn(*a, **kw)
+            finally:
+                depth[0] -= follow
+
+        setattr(pipeline, fname, within)
     for name, (attr, _, _, core, _) in kernel_table().items():
         fn = saved[attr] = getattr(pipeline, attr)
 
         def rec(*a, _fn=fn, _name=name, _core=core, **kw):
-            args, kwargs = _core(a, kw)
-            calls[_name].append((
-                tuple(x.clone() if torch.is_tensor(x) else x for x in args), kwargs,
-            ))
+            if depth[0] or not inside:
+                args, kwargs = _core(a, kw)
+                calls[_name].append((
+                    tuple(x.clone() if torch.is_tensor(x) else x for x in args), kwargs,
+                ))
             return _fn(*a, **kw)
 
         setattr(pipeline, attr, rec)
@@ -437,7 +477,8 @@ def simulate_reads(rng, codes: np.ndarray, contig_start: int, n: int, L: int):
     """n reads of L bases: 1% substitutions, a 1-3 bp deletion or
     insertion in a quarter of them, half from the reverse strand.
     Returns (codes [n, L] uint8, qual bytes [n, L] uint8, the genome
-    location one past the sampled reference span [n] int64)."""
+    location one past the sampled reference span [n] int64, the
+    span's first base as a 0-based contig position [n] int64)."""
     reads = np.empty((n, L), np.uint8)
     true_end = np.empty(n, np.int64)
     span = L + 8
@@ -463,16 +504,17 @@ def simulate_reads(rng, codes: np.ndarray, contig_start: int, n: int, L: int):
     mut = rng.random((n, L)) < 0.01
     reads = np.where(mut, rng.integers(0, 4, (n, L)), reads).astype(np.uint8)
     phred = np.clip(rng.normal(36, 5, (n, L)).round(), 2, 41).astype(np.uint8)
-    return reads, phred + 33, true_end
+    return reads, phred + 33, true_end, starts.astype(np.int64)
 
 
-def write_fastq(path: str, reads: np.ndarray, quals: np.ndarray):
+def write_fastq(path: str, reads: np.ndarray, quals: np.ndarray, names=None):
     from snap_tpu_torch.constants import BASE_DECODE
 
     seqs = BASE_DECODE[reads]
     with open(path, "wb") as f:
         for i in range(reads.shape[0]):
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), quals[i].tobytes()))
+            name = names[i] if names is not None else b"r%d" % i
+            f.write(b"@%s\n%s\n+\n%s\n" % (name, seqs[i].tobytes(), quals[i].tobytes()))
 
 
 def counted(run) -> tuple[object, dict]:
@@ -548,13 +590,21 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
         fail("e2e", "FASTA round trip changed the genome")
     t_gen = time.time() - t0
 
+    # the index is built once, by the port's `index` command, and loaded
+    from snap_tpu_torch.cli import main as cli_main
+
+    idx_dir = os.path.join(workdir, "idx")
     t0 = time.time()
-    idx = GenomeIndex.build(genome, seed_len=24, device="cuda")
-    torch.cuda.synchronize()
+    if cli_main(["index", fa, idx_dir, "-s", "24"]) != 0:
+        fail("e2e", "the index command failed")
     t_index = time.time() - t0
+    t0 = time.time()
+    idx = GenomeIndex.load(idx_dir, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
     index_bytes = sum(t.numel() * t.element_size() for t in idx.device)
 
-    reads, quals, true_end = simulate_reads(rng, codes, contig_start, READS, READ_LEN)
+    reads, quals, true_end, _ = simulate_reads(rng, codes, contig_start, READS, READ_LEN)
     fq = os.path.join(workdir, "reads.fq")
     write_fastq(fq, reads, quals)
     batch = next(read_batches(fq, batch_size=READS, max_len=MAX_LEN))
@@ -653,6 +703,7 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
         "phase": "e2e", "ok": True,
         "genome_bp": glen, "repeat_frac": 0.25,
         "genome_s": round(t_gen, 3), "index_build_s": round(t_index, 3),
+        "index_load_s": round(t_load, 3),
         "index_device_bytes": index_bytes, "max_probe": idx.max_probe,
         "reads": READS, "read_len": READ_LEN, "max_len": MAX_LEN,
         "launches_adaptive": counts_ab, "launches_phase_c": counts_c,
@@ -669,14 +720,297 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
     if profile:
         res["profile"] = profile_steps(step, 3)
     emit(res)
-    return counts_c, calls
+    return counts_c, calls, {"codes": codes, "contig_start": contig_start,
+                             "idx_dir": idx_dir}
 
 
-def kernels_line(ksum: dict, launches: dict) -> dict:
-    """The summary line: per kernel, its launches in the phase-C step and
-    the sums over those launches (replayed in the kernels phase) of its
-    device time, its per-call time, its plain version's time and its
-    bound (and its baseline's device time, when there was one)."""
+# ------------------------------------------------------------ FASTQ -> SAM
+
+SAM_READS = 65_536
+SAM_RUNS = (None, 16_384)      # -b of each timed run: the CLI's default (1024), 16384
+SAM_CHECK_READS = 1024         # card-vs-CPU SAM
+# the device calls of the host redo paths: the wide redo of truncated and
+# edge-indel rows (score_candidates, then score_rows in two_phase_merge)
+# and the dp_overflow redo (align_tier1, then score_rows)
+REDO_PATH = ("score_candidates", "score_rows", "align_tier1")
+RECORD_STEPS = 4               # steps of the -b 1024 run whose launches are replayed
+# where the host's seconds go in a run: methods of SingleEndAligner (the
+# step's dispatch, the batch's padding and copy included, and the wait
+# for its winners) and the pipeline calls of the redo paths (device work
+# and its fetch)
+TIMED_METHODS = ("_submit", "_fetch_winners")
+TIMED_PIPELINE = ("align_tier1", "score_candidates", "two_phase_merge")
+
+
+def sam_summary(path: str) -> dict:
+    """Record and status counts of a SAM file whose read names end in
+    _<true 1-based position>, and how many primary MAPQ >= 10 records lie
+    within 30 bp of it."""
+    out = {"records": 0, "primary": 0, "secondary_or_supplementary": 0,
+           "unmapped": 0, "mapq_ge_10": 0, "mapq_lt_10": 0, "mapq10_within_30bp": 0}
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@"):
+                continue
+            qname, flag, _, pos, mapq, _ = line.split(b"\t", 5)
+            flag = int(flag)
+            out["records"] += 1
+            if flag & 0x900:
+                out["secondary_or_supplementary"] += 1
+                continue
+            out["primary"] += 1
+            if flag & 0x4:
+                out["unmapped"] += 1
+                continue
+            if int(mapq) >= 10:
+                out["mapq_ge_10"] += 1
+                true = int(qname.rsplit(b"_", 1)[1])
+                out["mapq10_within_30bp"] += abs(int(pos) - true) <= 30
+            else:
+                out["mapq_lt_10"] += 1
+    out["within_30bp_share"] = out["mapq10_within_30bp"] / max(1, out["mapq_ge_10"])
+    return out
+
+
+def sam_records(path: str) -> list[bytes]:
+    with open(path, "rb") as f:
+        return [ln for ln in f.read().split(b"\n") if ln and not ln.startswith(b"@")]
+
+
+@contextlib.contextmanager
+def timers(acc: dict):
+    """Within the block, the seconds spent in (and the calls of) each of
+    TIMED_METHODS and TIMED_PIPELINE add up in acc[name] = [seconds,
+    calls]: a perf_counter pair per call, a few hundred calls a run."""
+    from snap_tpu_torch.align import pipeline, single
+
+    owners = [(single.SingleEndAligner, n) for n in TIMED_METHODS]
+    owners += [(pipeline, n) for n in TIMED_PIPELINE]
+    saved = []
+    for owner, name in owners:
+        fn = getattr(owner, name)
+        tally = acc.setdefault(name, [0.0, 0])
+
+        def timed(*a, _fn=fn, _tally=tally, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                _tally[0] += time.perf_counter() - t0
+                _tally[1] += 1
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def run_single(argv: list[str], device: str = "cuda") -> dict:
+    """One `single` command through the port's CLI entry point, timed,
+    with the kernels' launch counts and the native library's use set to
+    0 just before it and read just after, the host branch counts and
+    AlignerStats of the aligner it ran, and the host's seconds in the
+    device step (its dispatch and the wait for its winners) and in the
+    redo paths' pipeline calls."""
+    from snap_tpu_torch.align import single
+    from snap_tpu_torch.cli import main as cli_main
+    from snap_tpu_torch.io import native
+
+    made = []
+    align_file = single.SingleEndAligner.align_file
+
+    def keep(self, *a, **kw):
+        made.append(self)
+        return align_file(self, *a, **kw)
+
+    single.SingleEndAligner.align_file = keep
+    used0 = dict(native.USED)
+    acc = {}
+    try:
+        with timers(acc):
+            t0 = time.perf_counter()
+            rc, launches = counted(lambda: cli_main(argv, device=device))
+            wall = time.perf_counter() - t0
+    finally:
+        single.SingleEndAligner.align_file = align_file
+    if rc != 0:
+        fail("sam", f"{' '.join(argv)} exited {rc}")
+    st = made[-1].stats
+    step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
+    return {
+        "argv": argv, "device": device, "wall_s": wall,
+        "seconds_reading": st.seconds_reading,
+        "seconds_aligning": st.seconds_aligning,
+        "seconds_writing": st.seconds_writing,
+        "align_seconds": st.align_seconds,
+        "host_seconds": {name: {"s": s, "calls": n} for name, (s, n) in acc.items()},
+        "step_s": step_s,
+        "step_share_of_wall": step_s / wall,
+        "redo_calls_share_of_wall": sum(acc[n][0] for n in TIMED_PIPELINE) / wall,
+        "status": {"total": st.total, "single": st.single, "multi": st.multi,
+                   "not_found": st.not_found, "too_short": st.too_short,
+                   "filtered": st.filtered},
+        "branches": dict(made[-1].branches),
+        "launches": launches,
+        "native_calls": {k: v - used0[k] for k, v in native.USED.items()},
+    }
+
+
+def profile_single(argv: list[str], top: int = 30) -> dict:
+    """One `single` command under cProfile: the host functions by
+    cumulative and by own seconds. A wait for the card shows up in the
+    function that synchronizes (a .cpu(), .numpy() or event wait)."""
+    import cProfile
+    import pstats
+
+    from snap_tpu_torch.cli import main as cli_main
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    rc = cli_main(argv)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail("sam", f"{' '.join(argv)} exited {rc} under cProfile")
+    st = pstats.Stats(prof)
+
+    def rows(key):
+        items = sorted(st.stats.items(), key=lambda kv: -kv[1][key])[:top]
+        return [{"fn": f"{os.path.relpath(f, HERE) if f.startswith(HERE) else f}:{ln}:{name}",
+                 "calls": nc, "own_s": tt, "cum_s": ct}
+                for (f, ln, name), (_, nc, tt, ct, _) in items]
+
+    return {"argv": argv, "wall_s": wall, "by_cumulative": rows(3), "by_own": rows(2)}
+
+
+def replay_launches(calls: dict, what: str) -> dict:
+    """Each recorded kernel launch again, on its inputs: the kernel
+    against its plain version, bit for bit."""
+    import torch
+
+    out = {}
+    for name, (_, kern, plain, _, _) in kernel_table().items():
+        err = 0.0
+        for args, kw in calls[name]:
+            got = kern(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            bad = differing(name, got, ref)
+            if bad:
+                fail("sam", f"{name} launch from the {what}: " + "; ".join(bad))
+            err = max(err, float_err(got, ref))
+        out[name] = {"launches": len(calls[name]), "max_abs_err": err}
+    return out
+
+
+def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict:
+    """Returns the timed -b 1024 run's launch counts and the replays of
+    the recorded launches. With profile, another -b 1024 run under
+    cProfile is reported in a sam_profile line."""
+    from snap_tpu_torch.cli import _load_index_cached
+    from snap_tpu_torch.io import native
+
+    rng = np.random.default_rng(seed + 1)
+    reads, quals, _, starts = simulate_reads(
+        rng, ctx["codes"], ctx["contig_start"], SAM_READS, READ_LEN
+    )
+    names = [b"r%d_%d" % (i, s + 1) for i, s in enumerate(starts.tolist())]
+    fq = os.path.join(workdir, "sam_reads.fq")
+    write_fastq(fq, reads, quals, names)
+    idx_dir = ctx["idx_dir"]
+    t0 = time.time()
+    _load_index_cached(idx_dir, "cuda")   # cached for the runs below
+    load_s = time.time() - t0
+
+    # an untimed run with the CLI's defaults first: it keeps the inputs of
+    # every launch of the first RECORD_STEPS steps and of every launch
+    # the redo paths make, and takes the first-use costs off the timed runs
+    step_calls = {name: [] for name in KERNEL_SOURCES}
+    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    rec_out = os.path.join(workdir, "recorded.sam")
+    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS}), \
+            recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
+        rec = run_single(["single", idx_dir, fq, "-o", rec_out])
+    replays = {"step": replay_launches(step_calls, "-b 1024 step"),
+               "redo": replay_launches(redo_calls, "redo path")}
+
+    runs = []
+    for k, b in enumerate(SAM_RUNS):
+        out = os.path.join(workdir, f"out{k}.sam")
+        argv = ["single", idx_dir, fq, "-o", out] + (["-b", str(b)] if b else [])
+        r = run_single(argv)
+        r["batch"] = b or 1024
+        r["reads_per_s"] = SAM_READS / r["wall_s"]
+        r["sam"] = sam_summary(out)
+        runs.append(r)
+        if r["sam"]["primary"] != SAM_READS:
+            fail("sam", f"-b {r['batch']}: {r['sam']['primary']} primary records "
+                        f"for {SAM_READS} reads")
+        if r["sam"]["within_30bp_share"] < 0.98:
+            fail("sam", f"-b {r['batch']}: only {r['sam']['within_30bp_share']:.4f} "
+                        "of primary MAPQ >= 10 records within 30 bp")
+        missing = [n for n in KERNEL_SOURCES if r["launches"].get(n, 0) == 0]
+        if missing:
+            fail("sam", f"-b {r['batch']}: no launch of {missing}: {r['launches']}")
+    recorded = {"wall_s": rec["wall_s"], "launches": rec["launches"],
+                "same_records_as_timed_run":
+                    sam_records(rec_out) == sam_records(os.path.join(workdir, "out0.sam")),
+                "same_launches_as_timed_run": rec["launches"] == runs[0]["launches"]}
+    if profile:
+        out = os.path.join(workdir, "out_profile.sam")
+        emit({"phase": "sam_profile", "ok": True,
+              **profile_single(["single", idx_dir, fq, "-o", out])})
+
+    # the first reads on the card and on the CPU (the CPU run loads the
+    # index to host memory, so it comes last)
+    fq1 = os.path.join(workdir, "check.fq")
+    write_fastq(fq1, reads[:SAM_CHECK_READS], quals[:SAM_CHECK_READS],
+                names[:SAM_CHECK_READS])
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"check_{dev}.sam")
+        r = run_single(["single", idx_dir, fq1, "-o", out], device=dev)
+        recs[dev] = (sam_records(out), r["wall_s"])
+    card, cpu = recs["cuda"][0], recs["cpu"][0]
+    if len(card) != len(cpu):
+        fail("sam", f"card wrote {len(card)} records, the CPU {len(cpu)}")
+    diffs = []
+    for a, b in zip(card, cpu):
+        if a == b:
+            continue
+        fa, fb = a.split(b"\t"), b.split(b"\t")
+        diffs.append({"card": a[:200].decode(), "cpu": b[:200].decode()})
+        if fa[:4] + fa[5:] != fb[:4] + fb[5:] or abs(int(fa[4]) - int(fb[4])) > 1:
+            fail("sam", f"card and CPU records differ beyond MAPQ +-1: {diffs}")
+    if len(diffs) > 2:
+        fail("sam", f"{len(diffs)} of {len(card)} records differ between card and CPU")
+
+    emit({
+        "phase": "sam", "ok": True, "reads": SAM_READS, "read_len": READ_LEN,
+        "index_load_s": load_s, "runs": runs,
+        "native_library": {"available": native.available(),
+                           "sam_formatter": native.has_sam_formatter(),
+                           "build_error": native.BUILD_ERROR},
+        "recorded_run": recorded, "replays": replays,
+        "card_vs_cpu": {"reads": SAM_CHECK_READS, "records_differ": len(diffs),
+                        "diffs": diffs, "cpu_wall_s": recs["cpu"][1],
+                        "card_wall_s": recs["cuda"][1]},
+    })
+    return {"launches": runs[0]["launches"], "replays": replays}
+
+
+def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict) -> dict:
+    """The summary line: per kernel, its launches in the timed FASTQ->SAM
+    run (-b 1024), and the sums over the launches_step_c launches of one
+    16384-read phase-C step (replayed in the kernels phase) of its device
+    time, its per-call time, its plain version's time and its bound (and
+    its baseline's device time, when there was one). The -b 1024 launches
+    replayed bit for bit are counted apart (the first steps', the redo
+    paths'); max_abs_err covers them too."""
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         rows = ksum[name]
@@ -685,7 +1019,11 @@ def kernels_line(ksum: dict, launches: dict) -> dict:
         k = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches_step_c": step_launches[name],
+            "sam_step_launches_replayed": replays["step"][name]["launches"],
+            "redo_launches_replayed": replays["redo"][name]["launches"],
+            "max_abs_err": max(max(r["max_abs_err"] for r in rows),
+                               *(rp[name]["max_abs_err"] for rp in replays.values())),
             "ms": sum(r["ms"] for r in rows),
             "call_ms": sum(r["call_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -704,7 +1042,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--genome-len", type=int, default=CHR21_BP)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace three end-to-end steps with torch.profiler")
+                    help="also trace three end-to-end steps with torch.profiler "
+                         "and profile one FASTQ -> SAM run's host with cProfile")
     ap.add_argument("--baseline", metavar="DIR",
                     help="also build and time the kernel sources found in DIR")
     args = ap.parse_args()
@@ -723,11 +1062,12 @@ def main() -> None:
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
-        launches, calls = phase_e2e(args.seed, args.genome_len, wd, args.profile)
-    if not all(launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
-        fail("e2e", f"a kernel was never launched on the main path: {launches}")
+        step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd, args.profile)
+        if not all(step_launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
+            fail("e2e", f"a kernel was never launched in the step: {step_launches}")
+        sam = phase_sam(args.seed, ctx, wd, args.profile)
     ksum = phase_kernels(calls, base)
-    emit(kernels_line(ksum, launches))
+    emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"]))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

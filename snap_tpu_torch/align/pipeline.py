@@ -144,6 +144,28 @@ class SingleAlignOut(NamedTuple):
     truncated: torch.Tensor  # [B] bool some lookup overflowed the gather cap
 
 
+class Tier1Out(NamedTuple):
+    """Candidate generation + gapless prescreen results (two-phase API).
+
+    The host inspects gapless_dist/weight, decides which candidates need
+    the DP tier, and calls score_rows on just those. Integer fields keep
+    snap_tpu's narrow types, except cand_loc: int64 holding uint32 values
+    (torch has no usable uint32)."""
+
+    cand_loc: torch.Tensor      # [B, K] int64 (uint32 values)
+    seed_off: torch.Tensor      # [B, K] int16
+    direction: torch.Tensor     # [B, K] uint8
+    valid: torch.Tensor         # [B, K] bool candidate exists
+    weight: torch.Tensor        # [B, K] uint8 seed votes (saturated)
+    gapless_dist: torch.Tensor  # [B, K] int16 mismatches at anchored offset
+    gapless_logp: torch.Tensor  # [B, K] float32
+    len_eff: torch.Tensor       # [B] int32
+    popular: torch.Tensor       # [B] int32
+    n_lookups: torch.Tensor     # [B] int32
+    truncated: torch.Tensor     # [B] bool gather cap overflowed (redo wide)
+    big_indel: torch.Tensor     # [B, K] int16 phase-2a score-raise bonus
+
+
 class SubsetOut(NamedTuple):
     """Full DP + affine-gap results for a compacted row subset."""
 
@@ -673,14 +695,20 @@ def _score_from_candidates(
     n_lookups: torch.Tensor,
     params: AlignParams,
     dp_rows: int | None = None,
+    tier1_only: bool = False,
+    max_k_bonus: torch.Tensor | None = None,  # [B, K] i32 phase-2a raises
 ):
     """Two-tier scoring of a [B, K] candidate set. Returns
-    (SingleAlignOut, needs_total [] int32)."""
+    (SingleAlignOut, needs_total [] int32), or Tier1Out after the
+    gapless tier when tier1_only."""
     B, L = bases.shape
     K = cand_loc.shape[1]
     BK = B * K
     dev = bases.device
-    flat_bonus = torch.zeros((BK,), dtype=i32, device=dev)
+    if max_k_bonus is None:
+        flat_bonus = torch.zeros((BK,), dtype=i32, device=dev)
+    else:
+        flat_bonus = max_k_bonus.reshape(-1).to(i32)
     flat_mk_eff = torch.clamp_max(params.max_k + flat_bonus, 126)
 
     flat_dir = cand_dir.reshape(-1)
@@ -695,6 +723,24 @@ def _score_from_candidates(
     gapless_dist, gapless_logp = _tier1_gapless(
         didx, bases, rc_bases, logq_f, logq_r, len_eff, cand_loc, cand_dir
     )
+
+    if tier1_only:
+        return Tier1Out(
+            cand_loc=cand_loc.to(i64) & U32,
+            seed_off=cand_off.to(torch.int16),
+            direction=cand_dir.to(torch.uint8),
+            valid=cand_valid,
+            weight=torch.clamp_max(cand_weight, 255).to(torch.uint8),
+            gapless_dist=torch.clamp_max(gapless_dist.reshape(B, K), 1 << 14).to(
+                torch.int16
+            ),
+            gapless_logp=gapless_logp.reshape(B, K),
+            len_eff=len_eff,
+            popular=popular,
+            n_lookups=n_lookups,
+            truncated=truncated,
+            big_indel=torch.clamp_max(flat_bonus, 1023).to(torch.int16).reshape(B, K),
+        )
 
     # ---- tier 2: compact the candidates that need gaps
     GAPLESS_OK = params.max_k_same
@@ -770,6 +816,256 @@ def _score_from_candidates(
         truncated=truncated,
     )
     return out, needs_dp.sum().to(i32)
+
+
+# ------------------------------------------------------- two-phase host API
+
+
+def score_candidates(
+    didx: DeviceIndex,
+    bases: torch.Tensor,       # [B, L] uint8
+    quals: torch.Tensor,       # [B, L] uint8
+    len_eff: torch.Tensor,     # [B] int32 (host-computed clip)
+    cand_loc: torch.Tensor,    # [B, K] int64
+    cand_off: torch.Tensor,    # [B, K] int32 oriented anchor offsets
+    cand_dir: torch.Tensor,    # [B, K] int32
+    cand_valid: torch.Tensor,  # [B, K] bool
+    cand_weight: torch.Tensor, # [B, K] int32
+    popular: torch.Tensor,     # [B] int32
+    params: AlignParams,
+    tier1_only: bool = True,
+    truncated: torch.Tensor | None = None,    # [B] bool
+    max_k_bonus: torch.Tensor | None = None,  # [B, K] i32 phase-2a raises
+) -> Tier1Out | SingleAlignOut:
+    """Score an injected candidate set (the wide-hit redo pass and, later,
+    the paired-end intersection): the same two-tier scoring the device
+    candidate path uses, on candidates generated elsewhere."""
+    rc_bases, rc_quals = reverse_complement_reads(bases, quals, len_eff)
+    B = bases.shape[0]
+    dev = bases.device
+    res = _score_from_candidates(
+        didx, bases, rc_bases, quals, rc_quals, len_eff,
+        cand_loc, cand_off, cand_dir, cand_valid, cand_weight, popular,
+        torch.zeros((B,), dtype=torch.bool, device=dev) if truncated is None else truncated,
+        torch.zeros((B,), dtype=i32, device=dev),
+        params, tier1_only=tier1_only, max_k_bonus=max_k_bonus,
+    )
+    return res if tier1_only else res[0]
+
+
+def align_tier1(
+    didx: DeviceIndex,
+    bases: torch.Tensor,
+    quals: torch.Tensor,
+    lens: torch.Tensor,
+    params: AlignParams,
+) -> Tier1Out:
+    """Phase 1 of the two-phase driver path: candidates + gapless."""
+    (cand_loc, cand_off, cand_dir, cand_valid, cand_weight,
+     popular, trunc, len_eff, n_lookups) = _align_impl(didx, bases, quals, lens, params)
+    rc_bases, rc_quals = reverse_complement_reads(bases, quals, len_eff)
+    return _score_from_candidates(
+        didx, bases, rc_bases, quals, rc_quals, len_eff,
+        cand_loc, cand_off, cand_dir, cand_valid, cand_weight,
+        popular, trunc, n_lookups, params, tier1_only=True,
+    )
+
+
+def score_rows(
+    didx: DeviceIndex,
+    bases: torch.Tensor,     # [B, L] (possibly front-clipped) read codes
+    quals: torch.Tensor,
+    len_eff: torch.Tensor,   # [B] i32 from Tier1Out
+    read_ix: torch.Tensor,   # [M] i64 row index per selected candidate
+    dirs: torch.Tensor,      # [M] i32
+    locs: torch.Tensor,      # [M] i64
+    offs: torch.Tensor,      # [M] i32
+    live: torch.Tensor,      # [M] bool
+    params: AlignParams,
+    bonus: torch.Tensor | None = None,  # [M] i32 phase-2a score raises
+) -> SubsetOut:
+    """Phase 2: DP + affine-gap scoring of host-selected candidate rows
+    (M is a power of two; dead rows, live=False, are padding)."""
+    L = bases.shape[1]
+    rc_bases, rc_quals = reverse_complement_reads(bases, quals, len_eff)
+    ri = read_ix.to(i64)
+    rc = (dirs == 1)[:, None]
+    pat = torch.where(rc, rc_bases[ri], bases[ri]).contiguous()
+    pat_logq = device_logq(torch.where(rc, rc_quals[ri], quals[ri]))
+    return _score_rows(
+        didx, pat, pat_logq, len_eff[ri], locs.to(i64), offs.to(i32),
+        dirs.to(i32), live, params, L,
+        s_bonus=None if bonus is None else bonus.to(i32),
+    )
+
+
+def _pack_subset(sub: SubsetOut) -> torch.Tensor:
+    """[M, 9] int32 view of a SubsetOut, fetched to the host in one copy
+    (snap_tpu's layout: dist, lv_dist and ag_score at full width; indels
+    saturated at 0x7FFF, since the host only tests zero/nonzero)."""
+    w7 = (
+        torch.clamp_max(sub.indels.to(i32), 0x7FFF)
+        | (sub.escalated.to(i32) << 16)
+        | (sub.valid.to(i32) << 17)
+    )
+    return torch.stack(
+        [
+            _u32_to_i32(sub.end_loc),
+            _u32_to_i32(sub.body_loc),
+            sub.log_prob.to(f32).contiguous().view(i32),
+            sub.dist.to(i32),
+            sub.lv_dist.to(i32),
+            sub.ag_score.to(i32),
+            (sub.clip_before.to(i32) & 0xFFFF) | (sub.clip_after.to(i32) << 16),
+            w7,
+            sub.lv_log_prob.to(f32).contiguous().view(i32),
+        ],
+        dim=1,
+    )
+
+
+def fetch_subset(sub: SubsetOut) -> SubsetOut:
+    """device SubsetOut -> numpy SubsetOut via the packed transfer."""
+    pk = np.ascontiguousarray(_pack_subset(sub).cpu().numpy())
+    sx = lambda x: ((x & 0xFFFF) ^ 0x8000) - 0x8000
+    return SubsetOut(
+        dist=pk[:, 3],
+        lv_dist=pk[:, 4],
+        indels=(pk[:, 7] & 0x7FFF).astype(np.int32),
+        log_prob=np.ascontiguousarray(pk[:, 2]).view(np.float32),
+        ag_score=pk[:, 5],
+        end_loc=pk[:, 0].astype(np.int64) & 0xFFFFFFFF,
+        body_loc=pk[:, 1].astype(np.int64) & 0xFFFFFFFF,
+        escalated=((pk[:, 7] >> 16) & 1).astype(bool),
+        clip_before=sx(pk[:, 6]).astype(np.int32),
+        clip_after=(pk[:, 6] >> 16).astype(np.int32),
+        valid=((pk[:, 7] >> 17) & 1).astype(bool),
+        lv_log_prob=np.ascontiguousarray(pk[:, 8]).view(np.float32),
+    )
+
+
+def _pack_tier1(t1: Tier1Out) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tier1Out's host-bound fields as two dense int32 tensors (snap_tpu's
+    layout). cand words: w0 cand_loc (uint32 bits); w1 gapless_logp
+    (float32 bits); w2 seed_off(0..15) | weight(16..23) | direction(24) |
+    valid(25); w3 gapless_dist(0..15, saturated at 1<<14) |
+    big_indel(16..25). Per read: len_eff | popular << 16, truncated."""
+    w2 = (
+        (t1.seed_off.to(i32) & 0xFFFF)
+        | ((t1.weight.to(i32) & 0xFF) << 16)
+        | (t1.direction.to(i32) << 24)
+        | (t1.valid.to(i32) << 25)
+    )
+    cand = torch.stack(
+        [
+            _u32_to_i32(t1.cand_loc),
+            t1.gapless_logp.to(f32).contiguous().view(i32),
+            w2,
+            t1.gapless_dist.to(i32) | (t1.big_indel.to(i32) << 16),
+        ],
+        dim=2,
+    )
+    per_read = torch.stack(
+        [
+            (t1.len_eff.to(i32) & 0xFFFF) | (t1.popular.to(i32) << 16),
+            t1.truncated.to(i32),
+        ],
+        dim=1,
+    )
+    return cand, per_read
+
+
+def two_phase_merge(
+    didx: DeviceIndex,
+    t1: Tier1Out,
+    dev_bases: torch.Tensor,   # [B, L] device tensor from the tier-1 dispatch
+    dev_quals: torch.Tensor,
+    params: AlignParams,
+    force_dp: bool = False,
+) -> dict:
+    """Host half of the two-phase path: fetch tier-1 results, decide which
+    candidates need the DP tier (the rule _score_from_candidates applies
+    on device), run score_rows on a power-of-two-padded subset, and merge
+    into flat numpy [B, K] arrays for the record writers. force_dp (the
+    edge-indel redo rows) sends every imperfect candidate to the DP,
+    SNAP's always-LV scoring (BaseAligner.cpp:1160-1173)."""
+    cand_pk, read_pk = (t.cpu().numpy() for t in _pack_tier1(t1))
+    cand_pk = np.ascontiguousarray(cand_pk)
+    cand_loc = (cand_pk[:, :, 0].astype(np.int64)) & 0xFFFFFFFF
+    B, K = cand_loc.shape
+    glp = np.ascontiguousarray(cand_pk[:, :, 1]).view(np.float32)
+    w2 = cand_pk[:, :, 2]
+    seed_off = (((w2 & 0xFFFF) ^ 0x8000) - 0x8000).astype(np.int32)
+    weight = ((w2 >> 16) & 0xFF).astype(np.int32)
+    direction = ((w2 >> 24) & 1).astype(np.int32)
+    valid = ((w2 >> 25) & 1).astype(bool)
+    gd = (cand_pk[:, :, 3] & 0xFFFF).astype(np.int32)
+    big_indel = (cand_pk[:, :, 3] >> 16).astype(np.int32)
+    mk_eff = np.minimum(params.max_k + big_indel, 126)
+    r0 = read_pk[:, 0]
+    len_eff = (((r0 & 0xFFFF) ^ 0x8000) - 0x8000).astype(np.int32)
+    popular = (r0 >> 16).astype(np.int32)
+    truncated = read_pk[:, 1].astype(bool)
+
+    GOK = params.max_k_same
+    if force_dp:
+        needs = valid & (gd > 0)
+    else:
+        needs = valid & (gd > GOK)
+        read_min = np.min(np.where(valid, gd, np.int32(1 << 20)), axis=1)
+        promote = (read_min > GOK)[:, None] & (
+            np.arange(K, dtype=np.int32)[None, :] < 2
+        )
+        needs &= (weight >= 2) | promote
+
+    plen2 = len_eff[:, None].astype(np.int64)
+    merged = {
+        "dist": gd.astype(np.int64).copy(),
+        "lv_dist": gd.astype(np.int64).copy(),
+        "indels": np.zeros((B, K), np.int32),
+        "log_prob": glp.astype(np.float64).copy(),
+        "lv_log_prob": glp.astype(np.float64).copy(),
+        "ag_score": (plen2 - (params.ag_match + params.ag_sub) * gd).astype(np.int64),
+        "end_loc": cand_loc + plen2,
+        "body_loc": cand_loc.copy(),
+        "cand_loc": cand_loc,
+        "escalated": np.zeros((B, K), bool),
+        "clip_before": np.zeros((B, K), np.int32),
+        "clip_after": np.zeros((B, K), np.int32),
+        "seed_off": seed_off,
+        "direction": direction,
+        "valid": valid & ~needs & (gd <= mk_eff),
+        "len_eff": len_eff,
+        "popular": popular,
+        "weight": weight,
+        "truncated": truncated,
+        "big_indel": big_indel,
+    }
+
+    idx = np.flatnonzero(needs.reshape(-1))
+    if idx.size:
+        M = 1 << max(5, int(np.ceil(np.log2(idx.size))))
+        M = min(M, B * K)
+        sel = np.zeros(M, dtype=np.int64)
+        sel[: idx.size] = idx[:M]
+        live = np.zeros(M, dtype=bool)
+        live[: min(idx.size, M)] = True
+        dev = dev_bases.device
+        flat = lambda a: torch.from_numpy(np.ascontiguousarray(a.reshape(-1)[sel])).to(dev)
+        sub = score_rows(
+            didx, dev_bases, dev_quals, t1.len_eff,
+            torch.from_numpy(sel // K).to(dev), flat(direction), flat(cand_loc),
+            flat(seed_off), torch.from_numpy(live).to(dev), params,
+            bonus=flat(big_indel),
+        )
+        sub = fetch_subset(sub)
+        n = min(idx.size, M)
+        rows, cols = idx[:n] // K, idx[:n] % K
+        for name in ("dist", "lv_dist", "indels", "log_prob", "lv_log_prob",
+                     "ag_score", "end_loc", "body_loc", "escalated",
+                     "clip_before", "clip_after", "valid"):
+            merged[name][rows, cols] = np.asarray(getattr(sub, name))[:n]
+    return merged
 
 
 # ---------------------------------------------------------- device finalize

@@ -254,14 +254,167 @@ def build_index(
     return out
 
 
+def build_index_chunked(
+    genome: Genome,
+    seed_len: int = DEFAULT_SEED_LEN,
+    load_factor: float = 0.5,
+    memory_budget_gb: float = 8.0,
+    tmpdir: str | None = None,
+    status=None,
+) -> dict:
+    """hg38-scale build: external partitioned sort under a memory budget.
+
+    The -sm analogue (GenomeIndex.cpp:630-753, 1440-1679): instead of
+    one monolithic lexsort over every (key, orient, loc) triple (>40GB
+    for hg38 before workspace), triples are streamed genome-chunk by
+    genome-chunk into per-bank spill files partitioned by murmur low
+    bits, then each bank is sorted/deduped/placed independently —
+    peak memory = one bank's triples + sort workspace, bounded by
+    memory_budget_gb. Returns arrays dict with numpy memmaps for the
+    big arrays (tmpdir must outlive them unless save_index copies).
+    """
+    import tempfile
+
+    bases = np.asarray(genome.bases)
+    n_pos = genome.num_bases - seed_len + 1
+    # ~13 bytes/triple on disk; budget one bank at ~1/5 of the budget
+    # (sort + unique workspace is ~4x the input)
+    budget = memory_budget_gb * (1 << 30)
+    est_triples = n_pos
+    n_banks = 1
+    while est_triples * 13 * 5 / n_banks > budget and n_banks < 4096:
+        n_banks <<= 1
+    if n_banks == 1:
+        out = build_index(genome, seed_len, load_factor)
+        return out
+
+    if tmpdir is not None:
+        os.makedirs(tmpdir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=tmpdir, prefix="snap_tpu_idx_")
+    spill = [
+        open(os.path.join(tmp, f"part{b:04d}.bin"), "wb")
+        for b in range(n_banks)
+    ]
+    log = status if status is not None else (lambda s: None)
+
+    # pass 1: stream the genome, spill (key u64, loc u32, orient u8)
+    # triples partitioned by murmur low bits
+    chunk = 1 << 24
+    total = 0
+    for lo in range(0, n_pos, chunk):
+        hi = min(lo + chunk, n_pos)
+        pos = np.arange(lo, hi, dtype=np.int64)
+        fwd, rc, valid = pack_seeds_range(bases, lo, hi, seed_len)
+        canonical = np.minimum(fwd, rc)[valid]
+        orient = (rc < fwd)[valid]
+        loc = pos[valid].astype(np.uint32)
+        bank = (
+            murmur_finalize64(canonical) & np.uint64(n_banks - 1)
+        ).astype(np.int64)
+        order = np.argsort(bank, kind="stable")
+        bank_s = bank[order]
+        bounds = np.searchsorted(bank_s, np.arange(n_banks + 1))
+        ck, oc, lc = canonical[order], orient[order], loc[order]
+        for b in range(n_banks):
+            s, e = bounds[b], bounds[b + 1]
+            if e <= s:
+                continue
+            rec = np.empty((e - s,), dtype=_TRIPLE_DT)
+            rec["key"] = ck[s:e]
+            rec["loc"] = lc[s:e]
+            rec["orient"] = oc[s:e]
+            spill[b].write(rec.tobytes())
+        total += int(valid.sum())
+        log(f"seed scan {hi}/{n_pos} positions ({total} seeds spilled)")
+    for f in spill:
+        f.close()
+
+    # pass 2: per bank: sort, dedup, CSR append, table placement
+    hits_path = os.path.join(tmp, "hits.npy")
+    hits_mm = np.lib.format.open_memmap(
+        hits_path, mode="w+", dtype=np.uint32, shape=(total,)
+    )
+    # size banks from the measured dedup ratio of bank 0 (murmur-uniform
+    # partitioning makes it representative to ~0.1%), not the triple
+    # count — for repeat-rich genomes that halves the table
+    rec0 = np.fromfile(os.path.join(tmp, "part0000.bin"), dtype=_TRIPLE_DT)
+    u0 = np.unique(rec0["key"]).shape[0] if rec0.shape[0] else 1
+    del rec0
+    est_uniques = min(total, int(u0 * n_banks * 1.02) + n_banks)
+    bank_buckets, bank_slots = _bank_geometry(
+        est_uniques, load_factor, n_banks
+    )
+    table_path = os.path.join(tmp, "table.npy")
+    table = np.lib.format.open_memmap(
+        table_path, mode="w+", dtype=np.uint32,
+        shape=(n_banks, bank_slots, 4),
+    )
+    log2b = int(np.log2(n_banks))
+    span = 1
+    hits_off = 0
+    for b in range(n_banks):
+        pth = os.path.join(tmp, f"part{b:04d}.bin")
+        rec = np.fromfile(pth, dtype=_TRIPLE_DT)
+        os.remove(pth)
+        tb = table[b]
+        tb[:, 0] = 0xFFFFFFFF
+        tb[:, 1] = 0xFFFFFFFF
+        tb[:, 2] = 0
+        tb[:, 3] = 0
+        if rec.shape[0] == 0:
+            continue
+        locs_s, uk, start, n0, n1 = _dedup_sorted_triples(
+            rec["key"], rec["orient"].astype(bool), rec["loc"]
+        )
+        del rec
+        hits_mm[hits_off : hits_off + locs_s.shape[0]] = locs_s
+        h = murmur_finalize64(uk)
+        home = (
+            (h >> np.uint64(log2b)) & np.uint64(bank_buckets - 1)
+        ).astype(np.int64)
+        span = max(
+            span, _fill_bank_rows(tb, uk, start + hits_off, n0, n1, home)
+        )
+        hits_off += locs_s.shape[0]
+        log(f"bank {b + 1}/{n_banks} placed ({hits_off}/{total} hits)")
+
+    return {
+        "seed_len": seed_len,
+        "max_probe": span,
+        "hits": hits_mm,
+        "table": table,
+        "_tmpdir": tmp,
+    }
+
+
+_TRIPLE_DT = np.dtype(
+    [("key", np.uint64), ("loc", np.uint32), ("orient", np.uint8)]
+)
+
+
 def save_index(index: dict, genome: Genome, directory: str) -> None:
     os.makedirs(directory, exist_ok=True)
     genome.save(directory)
-    np.savez(
-        os.path.join(directory, "index_arrays.npz"),
-        hits=np.asarray(index["hits"]),
-        table=np.asarray(index["table"]),
-    )
+    tmpd = index.get("_tmpdir")
+    if tmpd and isinstance(index["hits"], np.memmap):
+        # chunked build: the arrays already live in .npy files — move
+        # them instead of rewriting ~80GB through a zip
+        index["hits"].flush()
+        index["table"].flush()
+        os.replace(
+            os.path.join(tmpd, "hits.npy"),
+            os.path.join(directory, "hits.npy"),
+        )
+        os.replace(
+            os.path.join(tmpd, "table.npy"),
+            os.path.join(directory, "table.npy"),
+        )
+    else:
+        np.savez(
+            os.path.join(directory, "index_arrays.npz"),
+            hits=np.asarray(index["hits"]),
+            table=np.asarray(index["table"]),
+        )
     with open(os.path.join(directory, "index_meta.json"), "w") as f:
         json.dump(
             {

@@ -240,6 +240,18 @@ class GenomeIndex:
         self.device = make_device_index(
             arrays, np.asarray(genome.bases), self.torch_device
         )
+        self._host_index = None
+
+    @property
+    def host(self):
+        """Lazy numpy-side lookup view (full CSR hit lists)."""
+        if self._host_index is None:
+            from .host_lookup import HostIndex
+
+            self._host_index = HostIndex(
+                self._host_arrays, self.seed_len, self.max_probe
+            )
+        return self._host_index
 
     def on(self, device) -> DeviceIndex:
         """The index tensors on another device (e.g. a CPU copy of a

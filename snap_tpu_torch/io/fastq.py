@@ -1,9 +1,13 @@
-"""FASTQ reading -> fixed-shape read batches (pure-Python scanner).
+"""FASTQ reading -> fixed-shape read batches.
 
-Counterpart of snap_tpu.io.fastq: reads are parsed into dense numpy
-tensors [batch, max_len] ready for the host->device copy: base codes,
-quality bytes, lengths, plus the id strings for SAM emission.
-Plain and gzipped FASTQ, single-end.
+Behavioral reference: SNAP's FASTQ.{h,cpp} (FASTQReader) and Read.h
+(quality clipping). Instead of SNAP's per-read pointer batches with
+refcounted buffers, reads are parsed into dense numpy tensors
+[batch, max_len] ready for H2D transfer: base codes, quality bytes,
+lengths, plus the id/comment strings host-side for SAM emission.
+
+Supports plain and gzipped FASTQ, single-end, two-file paired, and
+interleaved paired (ref: FASTQ.h:37,94,133).
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ class ReadBatch:
     bases: np.ndarray         # [n, L] uint8 codes (pad = 4/N beyond length)
     quals: np.ndarray         # [n, L] uint8 raw phred+33 bytes (pad = 0)
     lengths: np.ndarray       # [n] int32
+    # SAM-input aux tags per read (b"" when none): passed through to the
+    # output record ahead of our own tags (SAM.cpp:1854-1875). None for
+    # FASTQ/BAM inputs (BAM aux is not translated, like the reference).
     aux: list[bytes] | None = None
 
     def __len__(self) -> int:
@@ -38,6 +45,8 @@ def _open(path: str, force_gzip: bool = False):
         raw = sys.stdin.buffer
         return gzip.GzipFile(fileobj=raw) if force_gzip else raw
     if "://" in path:
+        # remote inputs (http(s)://, registered schemes) go through the
+        # GenericFile factory, which also applies the gzip wrap
         from .genericfile import open_generic
 
         return open_generic(path, "rb", gzipped=force_gzip or None)
@@ -46,9 +55,7 @@ def _open(path: str, force_gzip: bool = False):
     return open(path, "rb")
 
 
-def iter_fastq_records(
-    path: str, force_gzip: bool = False
-) -> Iterator[tuple[bytes, bytes, bytes]]:
+def iter_fastq_records(path: str, force_gzip: bool = False) -> Iterator[tuple[bytes, bytes, bytes]]:
     """Yield (id_line, seq, qual) byte tuples."""
     with _open(path, force_gzip) as f:
         while True:
@@ -86,11 +93,54 @@ def _to_batch(records: list[tuple[bytes, bytes, bytes]], max_len: int) -> ReadBa
     return ReadBatch(ids=ids, bases=bases, quals=quals, lengths=lengths)
 
 
+def _native_read_batches(
+    path: str, batch_size: int, max_len: int, force_gzip: bool = False
+) -> Iterator[ReadBatch]:
+    """Batch scan via the native runtime (native/snapio.cpp), the
+    equivalent of SNAP's C++ FASTQReader hot loop."""
+    from . import native
+
+    CHUNK = 8 << 20
+    with _open(path, force_gzip) as f:
+        buf = b""
+        eof = False
+        while True:
+            while not eof and len(buf) < CHUNK:
+                chunk = f.read(CHUNK)
+                if not chunk:
+                    eof = True
+                    break
+                buf += chunk
+            if not buf:
+                return
+            n, bases, quals, lens, ids, consumed = native.parse_fastq_buffer(
+                buf, batch_size, max_len
+            )
+            if n < batch_size and not eof:
+                # grow the buffer so mid-stream batches stay full-size
+                more = f.read(CHUNK)
+                if more:
+                    buf += more
+                    continue
+                eof = True
+            if n == 0:
+                if buf.strip():
+                    raise ValueError("truncated final FASTQ record")
+                return
+            yield ReadBatch(ids=ids, bases=bases, quals=quals, lengths=lens)
+            buf = buf[consumed:]
+
+
 def read_batches(
     path: str, batch_size: int = 4096, max_len: int = 400,
     force_gzip: bool = False,
 ) -> Iterator[ReadBatch]:
     """Stream single-end batches. The final batch may be short."""
+    from . import native
+
+    if native.available():
+        yield from _native_read_batches(path, batch_size, max_len, force_gzip)
+        return
     buf: list[tuple[bytes, bytes, bytes]] = []
     for rec in iter_fastq_records(path, force_gzip):
         buf.append(rec)
@@ -99,3 +149,43 @@ def read_batches(
             buf = []
     if buf:
         yield _to_batch(buf, max_len)
+
+
+def paired_read_batches(
+    path1: str,
+    path2: str | None = None,
+    batch_size: int = 4096,
+    max_len: int = 400,
+    force_gzip: bool = False,
+) -> Iterator[tuple[ReadBatch, ReadBatch]]:
+    """Paired batches: two files, or one interleaved file (path2=None)."""
+    buf1: list[tuple[bytes, bytes, bytes]] = []
+    buf2: list[tuple[bytes, bytes, bytes]] = []
+
+    def flush():
+        return _to_batch(buf1, max_len), _to_batch(buf2, max_len)
+
+    if path2 is None:
+        it = iter_fastq_records(path1, force_gzip)
+        for rec1 in it:
+            try:
+                rec2 = next(it)
+            except StopIteration:
+                raise ValueError("interleaved FASTQ has odd record count")
+            buf1.append(rec1)
+            buf2.append(rec2)
+            if len(buf1) == batch_size:
+                yield flush()
+                buf1, buf2 = [], []
+    else:
+        for rec1, rec2 in zip(
+            iter_fastq_records(path1, force_gzip),
+            iter_fastq_records(path2, force_gzip), strict=True
+        ):
+            buf1.append(rec1)
+            buf2.append(rec2)
+            if len(buf1) == batch_size:
+                yield flush()
+                buf1, buf2 = [], []
+    if buf1:
+        yield flush()

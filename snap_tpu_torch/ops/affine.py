@@ -84,13 +84,19 @@ def affine_extend_core_plain(
     """The recurrence over text rows, plain PyTorch."""
     OPEN = gap_open + gap_extend
     EXT = gap_extend
-    N, L = pattern.shape
+    N = pattern.shape[0]
     T = text.shape[1]
     dev = pattern.device
     i32, f32 = torch.int32, torch.float32
     plen = plen.to(i32)
     tlen = tlen.to(i32)
     score_init = score_init.to(i32)
+    # columns past the longest pattern and text rows past the longest
+    # text change no readout (every cell there is outside its row's
+    # pattern, every row past tlen is frozen), so they are not computed
+    L = max(1, min(pattern.shape[1], int(plen.max()) if N else 0))
+    pattern, pat_logq = pattern[:, :L], pat_logq[:, :L]
+    n_text = max(0, min(T, int(tlen.max()) if N else 0))
     jc = torch.arange(L, dtype=i32, device=dev)[None, :]
     jc64 = jc.to(torch.int64)
     in_pat = jc < plen[:, None]
@@ -123,7 +129,7 @@ def affine_extend_core_plain(
     zero_col = torch.zeros((N, 1), dtype=i32, device=dev)
     pos_j = (jc > 0).to(i32)
 
-    for i in range(T):
+    for i in range(n_text):
         tb = text[:, i : i + 1].to(i32)
         is_n = (tb >= 4) | (pat >= 4)
         eq = tb == pat

@@ -104,7 +104,9 @@ def fitting_edit_distance_core_plain(pattern, pat_logq, plen, text, anchored):
     jc64 = jc.to(torch.int64)
     text_i = text.to(i32)
 
-    for i in range(L):
+    # rows past the longest pattern set no answer (is_last never holds)
+    n_rows = min(L, int(plen.max())) if N else 0
+    for i in range(n_rows):
         pb = pattern[:, i : i + 1].to(i32)
         lq = pat_logq[:, i : i + 1]
         mism = text_i != pb                                     # [N, W]

@@ -27,6 +27,25 @@ MODULES = [
     "snap_tpu_torch.ops.affine",
     "snap_tpu_torch.ops.affine_cuda",
     "snap_tpu_torch.align.pipeline",
+    "snap_tpu_torch.options",
+    "snap_tpu_torch.errors",
+    "snap_tpu_torch.stats",
+    "snap_tpu_torch.io.native",
+    "snap_tpu_torch.io.readers",
+    "snap_tpu_torch.io.sam",
+    "snap_tpu_torch.io.output",
+    "snap_tpu_torch.io.bam",
+    "snap_tpu_torch.io.bgzf",
+    "snap_tpu_torch.io.bufferedasync",
+    "snap_tpu_torch.index.host_lookup",
+    "snap_tpu_torch.align.cigar",
+    "snap_tpu_torch.align.agcigar",
+    "snap_tpu_torch.align.adjust",
+    "snap_tpu_torch.align.post",
+    "snap_tpu_torch.align.intersect",
+    "snap_tpu_torch.align.single",
+    "snap_tpu_torch.cli",
+    "snap_tpu_torch.__main__",
 ]
 
 _CHECK = """
