@@ -36,6 +36,26 @@ Phases, each printing one JSON line:
            replayed launch that differs from its plain version.
            --profile adds a cProfile of a -b 1024 run's host functions
            (a sam_profile line).
+  paired   the paired-end path as a user runs it: 32768 simulated pairs
+           of 2 x 100 bp (inserts normal(300, 30) clipped to [220, 600],
+           the second end reverse complemented, the single-end error
+           model, both true positions in the pair's name) through
+           `paired <index> r1.fq r2.fq -o out.sam` at the CLI default
+           -b 512. First an untimed run of the first 4096 pairs keeps
+           the inputs of every kernel launch of its first 4 batches and
+           of every launch of the host overflow redo and the edge-indel
+           fix, and replays each against its plain version bit for bit
+           (the wide tier launches no kernel: its pairs are scored with
+           their batch). Then the timed run: wall time, pairs/s and
+           reads/s, AlignerStats' seconds, the host's seconds in the
+           device intersection (its wide tier included), the batch's
+           score_candidates + two_phase_merge and the redo paths, the
+           branch counts, each kernel's launches, whether the native
+           paired formatter did the work. Fails unless 98% of primary
+           MAPQ >= 10 records lie within 30 bp of their end's true
+           position, unless the first 512 pairs give the same SAM on the
+           card and on the CPU (at most 2 records differing, in MAPQ +-1
+           only), and on any replayed launch that differs.
   kernels  each kernel launch of that step replayed on its own inputs,
            against the kernel's plain PyTorch version on the same CUDA
            tensors (every output bit for bit), beside the launch's bound.
@@ -49,12 +69,12 @@ Phases, each printing one JSON line:
            timed on the same launches in turns (baseline, kernel,
            kernel, baseline): how an earlier commit's kernel is put
            beside the current one without committing it.
-Then one {"kernels": [...]} line (per kernel: its launches in the timed
--b 1024 FASTQ->SAM run; the sums over the launches of one 16384-read
+Then a `seconds` line (each phase's wall seconds), one {"kernels": [...]}
+line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
+in the timed paired run; the sums over the launches of one 16384-read
 phase-C step of its device time, its per-call time, its plain version's
-time and its bound; the -b 1024 launches replayed), the card's name and
-power limit, and as the last line
-{"ok": true, "device": {...}}.
+time and its bound; the launches replayed), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
 snap_tpu_torch is not beside this file. Imports nothing of JAX.
@@ -73,6 +93,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): HBM
 # bandwidth, and 67 TFLOP/s of float32 outside the tensor cores, which
@@ -236,17 +257,19 @@ def kernel_table() -> dict:
 def recording(calls: dict, inside: dict | None = None):
     """Within the block the pipeline's kernel wrappers run unchanged, and
     each call's inputs are cloned into calls[name] as the kernel
-    wrapper's (args, kwargs). With `inside` (pipeline function name ->
-    how many of its first calls to follow, None for all), only the
-    launches made within those calls are kept. Blocks nest."""
+    wrapper's (args, kwargs). With `inside` (a pipeline function's name,
+    or an (owner, name) pair for another function or method -> how many
+    of its first calls to follow, None for all), only the launches made
+    within those calls are kept. Blocks nest."""
     import torch
 
     from snap_tpu_torch.align import pipeline
 
     saved = {}
     depth = [0]
-    for fname, limit in (inside or {}).items():
-        fn = saved[fname] = getattr(pipeline, fname)
+    for key, limit in (inside or {}).items():
+        owner, fname = key if isinstance(key, tuple) else (pipeline, key)
+        fn = saved[(owner, fname)] = getattr(owner, fname)
 
         def within(*a, _fn=fn, _limit=limit, _seen=[0], **kw):
             _seen[0] += 1
@@ -257,9 +280,9 @@ def recording(calls: dict, inside: dict | None = None):
             finally:
                 depth[0] -= follow
 
-        setattr(pipeline, fname, within)
+        setattr(owner, fname, within)
     for name, (attr, _, _, core, _) in kernel_table().items():
-        fn = saved[attr] = getattr(pipeline, attr)
+        fn = saved[(pipeline, attr)] = getattr(pipeline, attr)
 
         def rec(*a, _fn=fn, _name=name, _core=core, **kw):
             if depth[0] or not inside:
@@ -273,8 +296,8 @@ def recording(calls: dict, inside: dict | None = None):
     try:
         yield
     finally:
-        for attr, fn in saved.items():
-            setattr(pipeline, attr, fn)
+        for (owner, attr), fn in saved.items():
+            setattr(owner, attr, fn)
 
 
 def tensor_bytes(xs) -> int:
@@ -777,27 +800,47 @@ def sam_records(path: str) -> list[bytes]:
         return [ln for ln in f.read().split(b"\n") if ln and not ln.startswith(b"@")]
 
 
-@contextlib.contextmanager
-def timers(acc: dict):
-    """Within the block, the seconds spent in (and the calls of) each of
-    TIMED_METHODS and TIMED_PIPELINE add up in acc[name] = [seconds,
-    calls]: a perf_counter pair per call, a few hundred calls a run."""
-    from snap_tpu_torch.align import pipeline, single
+def card_vs_cpu(phase: str, card: list[bytes], cpu: list[bytes]) -> list[dict]:
+    """The SAM records that differ between the card's run and the CPU's;
+    fails unless they are at most 2 and differ in MAPQ by at most 1."""
+    if len(card) != len(cpu):
+        fail(phase, f"card wrote {len(card)} records, the CPU {len(cpu)}")
+    diffs = []
+    for a, b in zip(card, cpu):
+        if a == b:
+            continue
+        fa, fb = a.split(b"\t"), b.split(b"\t")
+        diffs.append({"card": a[:200].decode(), "cpu": b[:200].decode()})
+        if fa[:4] + fa[5:] != fb[:4] + fb[5:] or abs(int(fa[4]) - int(fb[4])) > 1:
+            fail(phase, f"card and CPU records differ beyond MAPQ +-1: {diffs}")
+    if len(diffs) > 2:
+        fail(phase, f"{len(diffs)} of {len(card)} records differ between card and CPU")
+    return diffs
 
-    owners = [(single.SingleEndAligner, n) for n in TIMED_METHODS]
-    owners += [(pipeline, n) for n in TIMED_PIPELINE]
+
+@contextlib.contextmanager
+def timers(acc: dict, owners: list):
+    """Within the block, the seconds spent in (and the calls of) each
+    (owner, name) function of `owners` add up in acc[name] = [seconds,
+    calls]: a perf_counter pair per call, a few hundred calls a run. A
+    call made inside another timed function adds up in
+    acc["<outermost>/<name>"] instead."""
     saved = []
+    stack = []
     for owner, name in owners:
         fn = getattr(owner, name)
-        tally = acc.setdefault(name, [0.0, 0])
+        acc.setdefault(name, [0.0, 0])
 
-        def timed(*a, _fn=fn, _tally=tally, **kw):
+        def timed(*a, _fn=fn, _name=name, **kw):
+            tally = acc.setdefault(f"{stack[0]}/{_name}" if stack else _name, [0.0, 0])
+            stack.append(_name)
             t0 = time.perf_counter()
             try:
                 return _fn(*a, **kw)
             finally:
-                _tally[0] += time.perf_counter() - t0
-                _tally[1] += 1
+                tally[0] += time.perf_counter() - t0
+                tally[1] += 1
+                stack.pop()
 
         saved.append((owner, name, fn))
         setattr(owner, name, timed)
@@ -808,38 +851,37 @@ def timers(acc: dict):
             setattr(owner, name, fn)
 
 
-def run_single(argv: list[str], device: str = "cuda") -> dict:
-    """One `single` command through the port's CLI entry point, timed,
-    with the kernels' launch counts and the native library's use set to
-    0 just before it and read just after, the host branch counts and
-    AlignerStats of the aligner it ran, and the host's seconds in the
-    device step (its dispatch and the wait for its winners) and in the
-    redo paths' pipeline calls."""
-    from snap_tpu_torch.align import single
+def run_cli(phase: str, argv: list[str], cls, entry: str, owners: list,
+            device: str) -> tuple[dict, object, dict]:
+    """One command through the port's CLI entry point, timed, with the
+    kernels' launch counts and the native library's use set to 0 just
+    before it and read just after, and the host's seconds in `owners`
+    (timers). Returns (the common fields of the run, the `cls` aligner
+    whose `entry` method ran, the timers' tallies)."""
     from snap_tpu_torch.cli import main as cli_main
     from snap_tpu_torch.io import native
 
     made = []
-    align_file = single.SingleEndAligner.align_file
+    run_entry = getattr(cls, entry)
 
     def keep(self, *a, **kw):
         made.append(self)
-        return align_file(self, *a, **kw)
+        return run_entry(self, *a, **kw)
 
-    single.SingleEndAligner.align_file = keep
+    setattr(cls, entry, keep)
     used0 = dict(native.USED)
     acc = {}
     try:
-        with timers(acc):
+        with timers(acc, owners):
             t0 = time.perf_counter()
             rc, launches = counted(lambda: cli_main(argv, device=device))
             wall = time.perf_counter() - t0
     finally:
-        single.SingleEndAligner.align_file = align_file
+        setattr(cls, entry, run_entry)
     if rc != 0:
-        fail("sam", f"{' '.join(argv)} exited {rc}")
-    st = made[-1].stats
-    step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
+        fail(phase, f"{' '.join(argv)} exited {rc}")
+    aligner = made[-1]
+    st = aligner.stats
     return {
         "argv": argv, "device": device, "wall_s": wall,
         "seconds_reading": st.seconds_reading,
@@ -847,16 +889,33 @@ def run_single(argv: list[str], device: str = "cuda") -> dict:
         "seconds_writing": st.seconds_writing,
         "align_seconds": st.align_seconds,
         "host_seconds": {name: {"s": s, "calls": n} for name, (s, n) in acc.items()},
-        "step_s": step_s,
-        "step_share_of_wall": step_s / wall,
-        "redo_calls_share_of_wall": sum(acc[n][0] for n in TIMED_PIPELINE) / wall,
         "status": {"total": st.total, "single": st.single, "multi": st.multi,
                    "not_found": st.not_found, "too_short": st.too_short,
                    "filtered": st.filtered},
-        "branches": dict(made[-1].branches),
+        "branches": dict(aligner.branches),
         "launches": launches,
         "native_calls": {k: v - used0[k] for k, v in native.USED.items()},
-    }
+    }, aligner, acc
+
+
+def run_single(argv: list[str], device: str = "cuda") -> dict:
+    """One `single` command through run_cli, with the host's seconds in
+    the device step (its dispatch and the wait for its winners) and in
+    the redo paths' pipeline calls."""
+    from snap_tpu_torch.align import pipeline, single
+
+    owners = [(single.SingleEndAligner, n) for n in TIMED_METHODS]
+    owners += [(pipeline, n) for n in TIMED_PIPELINE]
+    run, _, acc = run_cli("sam", argv, single.SingleEndAligner, "align_file",
+                          owners, device)
+    step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
+    run.update({
+        "step_s": step_s,
+        "step_share_of_wall": step_s / run["wall_s"],
+        "redo_calls_share_of_wall":
+            sum(acc[n][0] for n in TIMED_PIPELINE) / run["wall_s"],
+    })
+    return run
 
 
 def profile_single(argv: list[str], top: int = 30) -> dict:
@@ -887,7 +946,7 @@ def profile_single(argv: list[str], top: int = 30) -> dict:
     return {"argv": argv, "wall_s": wall, "by_cumulative": rows(3), "by_own": rows(2)}
 
 
-def replay_launches(calls: dict, what: str) -> dict:
+def replay_launches(calls: dict, what: str, phase: str = "sam") -> dict:
     """Each recorded kernel launch again, on its inputs: the kernel
     against its plain version, bit for bit."""
     import torch
@@ -901,7 +960,7 @@ def replay_launches(calls: dict, what: str) -> dict:
             torch.cuda.synchronize()
             bad = differing(name, got, ref)
             if bad:
-                fail("sam", f"{name} launch from the {what}: " + "; ".join(bad))
+                fail(phase, f"{name} launch from the {what}: " + "; ".join(bad))
             err = max(err, float_err(got, ref))
         out[name] = {"launches": len(calls[name]), "max_abs_err": err}
     return out
@@ -975,19 +1034,7 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
         out = os.path.join(workdir, f"check_{dev}.sam")
         r = run_single(["single", idx_dir, fq1, "-o", out], device=dev)
         recs[dev] = (sam_records(out), r["wall_s"])
-    card, cpu = recs["cuda"][0], recs["cpu"][0]
-    if len(card) != len(cpu):
-        fail("sam", f"card wrote {len(card)} records, the CPU {len(cpu)}")
-    diffs = []
-    for a, b in zip(card, cpu):
-        if a == b:
-            continue
-        fa, fb = a.split(b"\t"), b.split(b"\t")
-        diffs.append({"card": a[:200].decode(), "cpu": b[:200].decode()})
-        if fa[:4] + fa[5:] != fb[:4] + fb[5:] or abs(int(fa[4]) - int(fb[4])) > 1:
-            fail("sam", f"card and CPU records differ beyond MAPQ +-1: {diffs}")
-    if len(diffs) > 2:
-        fail("sam", f"{len(diffs)} of {len(card)} records differ between card and CPU")
+    diffs = card_vs_cpu("sam", recs["cuda"][0], recs["cpu"][0])
 
     emit({
         "phase": "sam", "ok": True, "reads": SAM_READS, "read_len": READ_LEN,
@@ -1002,15 +1049,213 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
     })
     return {"launches": runs[0]["launches"], "replays": replays}
 
+# ------------------------------------------------------- paired FASTQ -> SAM
 
-def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict) -> dict:
+PAIRS = 32_768
+PAIRED_RECORD_PAIRS = 4_096    # the untimed recording run
+PAIRED_RECORD_BATCHES = 4      # batches of it whose every launch is replayed
+PAIRED_CHECK_PAIRS = 512       # card-vs-CPU SAM
+# where the host's seconds go in a paired run: the device intersection
+# (its wide tier and the overflow fetch included), the batch's scoring,
+# and the two redo paths (their own scoring calls included)
+PAIRED_METHODS = ("_device_intersect", "_redo_overflow_pairs", "_fix_edge_indels")
+PAIRED_PIPELINE = ("score_candidates", "two_phase_merge")
+
+
+def simulate_pairs(rng, codes: np.ndarray, n: int, L: int):
+    """n pairs of L-base ends from inserts drawn from normal(300, 30)
+    clipped to [220, 600]: the first end forward from the fragment's
+    start, the second reverse complemented from its end, each with
+    simulate_reads' errors (1% substitutions, a 1-3 bp deletion or
+    insertion in a quarter of the ends, phred normal(36, 5)). Returns
+    (ends [2, n, L] uint8, quals [2, n, L], the 1-based leftmost
+    reference position of each end [2, n] int64)."""
+    ends = np.empty((2, n, L), np.uint8)
+    pos = np.empty((2, n), np.int64)
+    inserts = np.clip(rng.normal(300, 30, n).round(), 220, 600).astype(np.int64)
+    starts = rng.integers(0, codes.size - 700, n)
+    for i in range(n):
+        for e in range(2):
+            kind = int(rng.integers(0, 8))
+            used = L
+            if kind in (1, 2):
+                p, k = int(rng.integers(20, L - 20)), int(rng.integers(1, 4))
+                used = L + k if kind == 1 else L - k
+            s0 = int(starts[i]) if e == 0 else int(starts[i] + inserts[i]) - used
+            r = codes[s0 : s0 + L + 8].copy()
+            if kind == 1:  # deletion from the read
+                r = np.delete(r, slice(p, p + k))
+            elif kind == 2:  # insertion into the read
+                r = np.insert(r, p, rng.integers(0, 4, k).astype(np.uint8))
+            r = r[:L]
+            ends[e, i] = r if e == 0 else (3 - r)[::-1]
+            pos[e, i] = s0 + 1
+    mut = rng.random(ends.shape) < 0.01
+    ends = np.where(mut, rng.integers(0, 4, ends.shape), ends).astype(np.uint8)
+    phred = np.clip(rng.normal(36, 5, ends.shape).round(), 2, 41).astype(np.uint8)
+    return ends, phred + 33, pos
+
+
+def paired_summary(path: str) -> dict:
+    """Record and status counts of a paired SAM file whose pair names end
+    in _<true position of end 1>_<of end 2>, how many primary MAPQ >= 10
+    records lie within 30 bp of their end's, and the share of pairs
+    flagged proper (0x2)."""
+    out = {"records": 0, "primary": 0, "secondary_or_supplementary": 0,
+           "unmapped": 0, "mapq_ge_10": 0, "mapq10_within_30bp": 0,
+           "proper_pairs": 0, "pairs": 0}
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@"):
+                continue
+            qname, flag, _, pos, mapq, _ = line.split(b"\t", 5)
+            flag = int(flag)
+            out["records"] += 1
+            if flag & 0x900:
+                out["secondary_or_supplementary"] += 1
+                continue
+            out["primary"] += 1
+            if flag & 0x40:
+                out["pairs"] += 1
+                out["proper_pairs"] += bool(flag & 0x2)
+            if flag & 0x4:
+                out["unmapped"] += 1
+                continue
+            if int(mapq) >= 10:
+                out["mapq_ge_10"] += 1
+                true = int(qname.rsplit(b"_", 2)[1 if flag & 0x40 else 2])
+                out["mapq10_within_30bp"] += abs(int(pos) - true) <= 30
+    out["within_30bp_share"] = out["mapq10_within_30bp"] / max(1, out["mapq_ge_10"])
+    out["proper_share"] = out["proper_pairs"] / max(1, out["pairs"])
+    return out
+
+
+def run_paired(argv: list[str], device: str = "cuda") -> dict:
+    """One `paired` command through run_cli, with the host's seconds in
+    the device intersection, the batch's scoring and the redo paths, the
+    pair counters of AlignerStats, and the card's peak memory in the
+    run."""
+    import torch
+
+    from snap_tpu_torch.align import paired_driver, pipeline
+
+    cls = paired_driver.PairedEndAligner
+    owners = [(cls, n) for n in PAIRED_METHODS] + [(pipeline, n) for n in PAIRED_PIPELINE]
+    torch.cuda.reset_peak_memory_stats()
+    run, aligner, acc = run_cli("paired", argv, cls, "align_files", owners, device)
+    wall = run["wall_s"]
+    sec = lambda *names: sum(acc.get(n, [0.0])[0] for n in names)
+    parts = {"intersect": sec("_device_intersect"), "scoring": sec(*PAIRED_PIPELINE),
+             "redo": sec("_redo_overflow_pairs", "_fix_edge_indels")}
+    st = aligner.stats
+    run["status"].update(aligned_as_pairs=st.aligned_as_pairs,
+                         intersect_wide_pairs=st.intersect_wide_pairs,
+                         intersect_overflow_pairs=st.intersect_overflow_pairs)
+    run.update({
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **{f"{k}_s": v for k, v in parts.items()},
+        "shares_of_wall": {k: v / wall for k, v in parts.items()},
+    })
+    return run
+
+
+def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
+    """Returns the timed run's launch counts and the replays of the
+    recorded launches."""
+    from snap_tpu_torch.align import paired_driver
+    from snap_tpu_torch.cli import _load_index_cached
+    from snap_tpu_torch.io import native
+
+    t_phase = time.time()
+    rng = np.random.default_rng(seed + 2)
+    ends, quals, pos = simulate_pairs(rng, ctx["codes"], PAIRS, READ_LEN)
+    names = [b"p%d_%d_%d" % (i, a, b) for i, (a, b) in enumerate(zip(*pos.tolist()))]
+
+    def write_pairs(tag: str, n: int) -> tuple[str, str]:
+        fqs = tuple(os.path.join(workdir, f"{tag}_{e + 1}.fq") for e in range(2))
+        for e in range(2):
+            write_fastq(fqs[e], ends[e, :n], quals[e, :n], names[:n])
+        return fqs
+
+    fq = write_pairs("pairs", PAIRS)
+    idx_dir = ctx["idx_dir"]
+    t0 = time.time()
+    _load_index_cached(idx_dir, "cuda")   # cached for the runs below
+    load_s = time.time() - t0
+
+    # an untimed run on the first pairs: every launch of its first
+    # batches and every launch of the two redo paths (the host overflow
+    # redo, the edge-indel fix) kept and replayed against the plain
+    # versions. The wide tier launches no kernel: its pairs are scored
+    # by their batch's score_candidates and two_phase_merge.
+    cls = paired_driver.PairedEndAligner
+    batch_calls = {name: [] for name in KERNEL_SOURCES}
+    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    fq_rec = write_pairs("rec", PAIRED_RECORD_PAIRS)
+    with recording(batch_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}), \
+            recording(redo_calls, inside={(cls, "_redo_overflow_pairs"): None,
+                                          (cls, "_fix_edge_indels"): None}):
+        rec = run_paired(["paired", idx_dir, *fq_rec, "-o", os.path.join(workdir, "prec.sam")])
+    replays = {"batch": replay_launches(batch_calls, "paired batches", "paired"),
+               "redo": replay_launches(redo_calls, "paired redo paths", "paired")}
+    empty = [n for n, r in replays["batch"].items() if r["launches"] == 0]
+    if empty:
+        fail("paired", f"no launch of {empty} recorded in the first batches")
+
+    out = os.path.join(workdir, "paired.sam")
+    run = run_paired(["paired", idx_dir, *fq, "-o", out])
+    run["pairs_per_s"] = PAIRS / run["wall_s"]
+    run["reads_per_s"] = 2 * PAIRS / run["wall_s"]
+    run["sam"] = summary = paired_summary(out)
+    if summary["pairs"] != PAIRS or summary["primary"] != 2 * PAIRS:
+        fail("paired", f"{summary['pairs']} pairs, {summary['primary']} primary records "
+                       f"for {PAIRS} pairs")
+    if summary["within_30bp_share"] < 0.98:
+        fail("paired", f"only {summary['within_30bp_share']:.4f} of primary MAPQ >= 10 "
+                       "records within 30 bp")
+    missing = [n for n in KERNEL_SOURCES if run["launches"].get(n, 0) == 0]
+    if missing:
+        fail("paired", f"no launch of {missing} in the timed run: {run['launches']}")
+
+    # the first pairs on the card and on the CPU (the CPU run loads the
+    # index to host memory, so it comes last)
+    fq1 = write_pairs("check", PAIRED_CHECK_PAIRS)
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        o = os.path.join(workdir, f"pcheck_{dev}.sam")
+        r = run_paired(["paired", idx_dir, *fq1, "-o", o], device=dev)
+        recs[dev] = (sam_records(o), r["wall_s"])
+    diffs = card_vs_cpu("paired", recs["cuda"][0], recs["cpu"][0])
+
+    emit({
+        "phase": "paired", "ok": True, "pairs": PAIRS, "read_len": READ_LEN,
+        "index_load_s": load_s, "run": run,
+        "native_library": {"available": native.available(),
+                           "paired_formatter": native.has_paired_formatter(),
+                           "build_error": native.BUILD_ERROR},
+        "recorded_run": {"pairs": PAIRED_RECORD_PAIRS, "wall_s": rec["wall_s"],
+                         "launches": rec["launches"], "branches": rec["branches"]},
+        "replays": replays,
+        "card_vs_cpu": {"pairs": PAIRED_CHECK_PAIRS, "records_differ": len(diffs),
+                        "diffs": diffs, "cpu_wall_s": recs["cpu"][1],
+                        "card_wall_s": recs["cuda"][1]},
+        "phase_s": time.time() - t_phase,
+    })
+    return {"launches": run["launches"], "replays": replays}
+
+
+def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
+                 paired: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
-    run (-b 1024), and the sums over the launches_step_c launches of one
-    16384-read phase-C step (replayed in the kernels phase) of its device
-    time, its per-call time, its plain version's time and its bound (and
-    its baseline's device time, when there was one). The -b 1024 launches
-    replayed bit for bit are counted apart (the first steps', the redo
-    paths'); max_abs_err covers them too."""
+    run (-b 1024) and in the timed paired run (launches_paired), and the
+    sums over the launches_step_c launches of one 16384-read phase-C step
+    (replayed in the kernels phase) of its device time, its per-call
+    time, its plain version's time and its bound (and its baseline's
+    device time, when there was one). The launches replayed bit for bit
+    are counted apart (the -b 1024 run's first steps' and redo paths';
+    the paired recording run's first batches' and redo paths', summed in
+    paired_launches_replayed); max_abs_err covers them too."""
+    replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         rows = ksum[name]
@@ -1022,6 +1267,9 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict)
             "launches_step_c": step_launches[name],
             "sam_step_launches_replayed": replays["step"][name]["launches"],
             "redo_launches_replayed": replays["redo"][name]["launches"],
+            "launches_paired": paired["launches"][name],
+            "paired_launches_replayed": sum(
+                r[name]["launches"] for r in paired["replays"].values()),
             "max_abs_err": max(max(r["max_abs_err"] for r in rows),
                                *(rp[name]["max_abs_err"] for rp in replays.values())),
             "ms": sum(r["ms"] for r in rows),
@@ -1061,13 +1309,22 @@ def main() -> None:
     phase_build(base)
     import tempfile
 
+    seconds = {}
+    t0 = time.time()
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
         step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd, args.profile)
         if not all(step_launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
             fail("e2e", f"a kernel was never launched in the step: {step_launches}")
+        seconds["e2e"], t0 = time.time() - t0, time.time()
         sam = phase_sam(args.seed, ctx, wd, args.profile)
+        seconds["sam"], t0 = time.time() - t0, time.time()
+        paired = phase_paired(args.seed, ctx, wd)
+        seconds["paired"], t0 = time.time() - t0, time.time()
     ksum = phase_kernels(calls, base)
-    emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"]))
+    seconds["kernels"] = time.time() - t0
+    emit({"phase": "seconds", "ok": True, **seconds,
+          "script": time.time() - T_START})
+    emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,7 @@
 """Command-line interface.
 
-Counterpart of snap_tpu.cli: the `index` and `single` commands, their
-option parsing, and the comma multi-run. Behavioral reference: SNAP's
+Counterpart of snap_tpu.cli: the `index`, `single` and `paired`
+commands, their option parsing, and the comma multi-run. Behavioral reference: SNAP's
 CLI surface (CommandProcessor.cpp:41-57, AlignerOptions.cpp usage).
 SNAP-style manual flag parsing — SNAP uses `-h` for maxHits, so
 argparse's default help is not an option.
@@ -9,8 +9,8 @@ argparse's default help is not an option.
 The device is a keyword of the Python entry point, main(argv,
 device=None): the CUDA card unless the caller passes device="cpu". It
 is not a command-line flag, so the @PG CL: field of the SAM header holds
-the same arguments as snap_tpu's. `paired`, the apps commands and
--ishards > 1 are not ported yet: they exit 1 naming their ROADMAP item.
+the same arguments as snap_tpu's. The apps commands, -ishards > 1 and
+-t > 1 are not ported yet: they exit 1 naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -261,6 +261,71 @@ def cmd_single(args: list[str], device=None) -> int:
 
     return _run_with_writer(
         index, "single " + " ".join(args), opts, run_all,
+    )
+
+
+def cmd_paired(args: list[str], device=None) -> int:
+    if len(args) < 2:
+        print(
+            "usage: snap-tpu paired <index-dir> <in1.fq> [in2.fq] [-o out.sam]"
+            " [-s min max] [-d maxDist] [-n numSeeds] [-b batchSize]",
+            file=sys.stderr,
+        )
+        return 1
+    index_dir, fq1 = args[0], args[1]
+    fq2 = None
+    i = 2
+    if i < len(args) and not args[i].startswith("-"):
+        fq2 = args[i]
+        i += 1
+    opts = _parse_align_options(args[i:])
+    if opts["ishards"] > 1:
+        return _not_ported("-ishards (index sharding over devices)", "A13")
+    if opts["threads"] > 1:
+        return _not_ported("-t > 1 (parallel FASTQ parsing)", "A11")
+    from .errors import configure as _configure_errors
+
+    _configure_errors(opts["quiet"], opts["very_quiet"], opts["hdp"])
+
+    from .align.paired_driver import PairedEndAligner
+    from .constants import DEFAULT_NUM_SEEDS_PAIRED
+
+    index = _load_index_cached(index_dir, device)
+    # -n default differs by command: 25 single / 8 paired
+    # (AlignerOptions.cpp:107-117 defaults block)
+    opts["overrides"].setdefault("num_seeds", DEFAULT_NUM_SEEDS_PAIRED)
+    params = AlignParams(
+        seed_len=index.seed_len,
+        max_probe=index.max_probe,
+        **opts["overrides"],
+    )
+    aligner = PairedEndAligner(
+        index, params, batch_size=opts["batch_size"],
+        max_read_len=opts["max_read_len"], min_read_length=opts["mrl"],
+        min_spacing=opts["min_sp"], max_spacing=opts["max_sp"],
+        alt_awareness=opts["alt_awareness"], emit_alt=opts["emit_alt"],
+        max_score_gap_to_prefer_non_alt=opts["asg"],
+        use_m=opts["use_m"], filter_flags=opts["filter_flags"],
+        ignore_mismatched_ids=opts["ignore_ids"],
+        force_spacing=opts["force_spacing"],
+        infer_spacing=opts["infer_spacing"],
+        internal_score_tag=opts["is_tag"],
+        min_score_realignment=opts["en"],
+        min_ag_improvement=opts["eg"],
+        flatten_mapq_at_or_below=opts["fmb"],
+        read_secondary=opts["read_secondary"],
+        max_secondary_edit=opts["om"], max_secondary=opts["omax"],
+        max_secondary_per_contig=opts["mpc"],
+        enable_hamming=opts["eh"],
+        keep_unpaired=opts["ku"],
+        attach_times=opts["at"],
+        force_kind=opts["force_kind"],
+        force_gzip=opts["force_gzip"],
+        force_interleaved=opts["interleaved"],
+    )
+    return _run_with_writer(
+        index, "paired " + " ".join(args), opts,
+        lambda writer: aligner.align_files(fq1, fq2, writer),
     )
 
 
@@ -623,7 +688,7 @@ def run_one_command(argv: list[str], device=None) -> int:
     if cmd == "single":
         return cmd_single(rest, device)
     if cmd == "paired":
-        return _not_ported("paired", "A10")
+        return cmd_paired(rest, device)
     if cmd in APP_COMMANDS:
         return _not_ported(cmd, "A12")
     print(f"unknown command {cmd}", file=sys.stderr)

@@ -29,7 +29,8 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 
-USED = {"fastq_scanner": 0, "sam_formatter": 0, "ag_cigar_batch": 0}
+USED = {"fastq_scanner": 0, "sam_formatter": 0, "sam_formatter_paired": 0,
+        "ag_cigar_batch": 0}
 BUILD_ERROR: str | None = None
 
 
@@ -287,6 +288,7 @@ def format_sam_paired(
     )
     if total < 0:
         return None
+    USED["sam_formatter_paired"] += 1
     return memoryview(out.data)[:total], rec_end
 
 

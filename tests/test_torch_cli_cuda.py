@@ -2,7 +2,8 @@
 
 Also holds the test inputs of tests/test_torch_single.py (a genome of two
 contigs written as FASTA, reads of every kind written as FASTQ), here
-because this file imports no JAX. The test is marked `cuda` and skips
+because this file imports no JAX, and a pair simulator for the `paired`
+twin. The test is marked `cuda` and skips
 where torch sees no CUDA device. On a machine with a card (and no JAX,
 so without tests/conftest.py):
 
@@ -109,6 +110,44 @@ def write_inputs(directory: str, kind: str, n_reads: int) -> None:
             f.write(b"@%s\n%s\n+\n%s\n" % (name, seq, qual))
 
 
+def write_pair_inputs(directory: str, kind: str, n_pairs: int, seed: int = 13) -> None:
+    """g.fa (as write_inputs) and r1.fq / r2.fq: pairs of READ_LEN bases
+    from inserts of 220-500 bp, the second end reverse complemented, 1%
+    substitutions, every eighth first end replaced by junk."""
+    codes = genome_codes(kind)
+    write_inputs(directory, kind, 0)
+    rng = np.random.default_rng(seed)
+    ends = ([], [])
+    for i in range(n_pairs):
+        insert = int(rng.integers(220, 500))
+        s = int(rng.integers(0, codes.size - insert))
+        r1 = codes[s : s + READ_LEN].copy()
+        r2 = codes[s + insert - READ_LEN : s + insert][::-1].copy()
+        r2 = np.where(r2 < 4, 3 - r2, r2)
+        if i % 8 == 7:
+            r1 = rng.integers(0, 4, READ_LEN).astype(np.uint8)
+        for k, r in enumerate((r1, r2)):
+            m = rng.random(READ_LEN) < 0.01
+            r = np.where(m, rng.integers(0, 4, READ_LEN), r)
+            q = rng.choice(np.frombuffer(b"#+5?II", np.uint8), READ_LEN)
+            ends[k].append(b"@p%d_%d\n%s\n+\n%s\n" % (i, s + 1, DEC[r].tobytes(), q.tobytes()))
+    for k in range(2):
+        with open(os.path.join(directory, f"r{k + 1}.fq"), "wb") as f:
+            f.write(b"".join(ends[k]))
+
+
+def same_but_mapq(card: list[bytes], cpu: list[bytes]) -> None:
+    """At most 2 lines differ, in MAPQ by at most 1 (the card's float
+    sums may round differently)."""
+    assert len(card) == len(cpu)
+    diff = [(a, b) for a, b in zip(card, cpu) if a != b]
+    assert len(diff) <= 2, diff
+    for a, b in diff:
+        fa, fb = a.split(b"\t"), b.split(b"\t")
+        assert fa[:4] + fa[5:] == fb[:4] + fb[5:], (a, b)
+        assert abs(int(fa[4]) - int(fb[4])) <= 1, (a, b)
+
+
 @pytest.mark.cuda
 def test_cli_card_matches_cpu(tmp_path, monkeypatch):
     """index + single -b 64 on the card and on the CPU: SAM records that
@@ -127,11 +166,27 @@ def test_cli_card_matches_cpu(tmp_path, monkeypatch):
         assert main(["index", "g.fa", "idx", "-s", "20"], device=dev) == 0
         assert main(["single", "idx", "r.fq", "-o", "out.sam", "-b", "64"], device=dev) == 0
         sams[dev] = (d / "out.sam").read_bytes().split(b"\n")
-    card, cpu = sams["cuda"], sams["cpu"]
-    assert len(card) == len(cpu)
-    diff = [(a, b) for a, b in zip(card, cpu) if a != b]
-    assert len(diff) <= 2, diff
-    for a, b in diff:
-        fa, fb = a.split(b"\t"), b.split(b"\t")
-        assert fa[:4] + fa[5:] == fb[:4] + fb[5:], (a, b)
-        assert abs(int(fa[4]) - int(fb[4])) <= 1, (a, b)
+    same_but_mapq(sams["cuda"], sams["cpu"])
+
+
+@pytest.mark.cuda
+def test_paired_card_matches_cpu(tmp_path, monkeypatch):
+    """index + paired -b 64 on the card and on the CPU, 192 pairs on the
+    25%-repeat genome: the same SAM but for MAPQ +-1 in at most 2
+    records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from snap_tpu_torch.cli import main
+
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        write_pair_inputs(str(d), "repeat25", 192)
+        monkeypatch.chdir(d)
+        assert main(["index", "g.fa", "idx", "-s", "20"], device=dev) == 0
+        argv = ["paired", "idx", "r1.fq", "r2.fq", "-o", "out.sam", "-b", "64"]
+        assert main(argv, device=dev) == 0
+        sams[dev] = (d / "out.sam").read_bytes().split(b"\n")
+    assert sum(1 for ln in sams["cpu"] if ln and not ln.startswith(b"@")) >= 2 * 192
+    same_but_mapq(sams["cuda"], sams["cpu"])

@@ -43,7 +43,10 @@ MODULES = [
     "snap_tpu_torch.align.adjust",
     "snap_tpu_torch.align.post",
     "snap_tpu_torch.align.intersect",
+    "snap_tpu_torch.align.intersect_device",
+    "snap_tpu_torch.align.paired",
     "snap_tpu_torch.align.single",
+    "snap_tpu_torch.align.paired_driver",
     "snap_tpu_torch.cli",
     "snap_tpu_torch.__main__",
 ]

@@ -11,6 +11,8 @@ the index and the shared ln P(error) table come from
 test_torch_pipeline's fixtures.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -212,3 +214,48 @@ def test_two_phase_merge_matches(case, force_dp):
             a, b = a.view(np.int64), b.view(np.int64)
         np.testing.assert_array_equal(b, a, err_msg=k)
     assert ref["escalated"].any() and ref["valid"].any()
+
+
+def paired_params(case):
+    """The case's parameters as the paired driver sets them: -i 40
+    widens the DP/affine text window to TW = L + 41."""
+    return (dataclasses.replace(case["jax"][4], max_k_indels=40),
+            dataclasses.replace(case["torch"][4], max_k_indels=40))
+
+
+def test_score_candidates_bonus_matches(case):
+    """score_candidates(tier1_only=True) with phase-2a bonuses (0-120)
+    and -i 40, as the paired driver calls it: the bonus rides in
+    Tier1Out.big_indel to two_phase_merge."""
+    ins = _wide_inputs(case)
+    bonus = np.random.default_rng(5).integers(0, 121, size=ins[3].shape).astype(np.int32)
+    jp, tp = paired_params(case)
+    ref = J.score_candidates(case["jax"][0], *map(jnp.asarray, ins), jp,
+                             tier1_only=True, max_k_bonus=jnp.asarray(bonus))
+    got = T.score_candidates(case["torch"][0], *map(torch.from_numpy, ins), tp,
+                             tier1_only=True, max_k_bonus=torch.from_numpy(bonus))
+    assert_same_tuple(ref, got)
+    np.testing.assert_array_equal(got.big_indel.numpy(), bonus)
+
+
+def test_score_rows_bonus_matches(case):
+    """score_rows with per-row bonuses 0-120 and -i 40 (text window TW =
+    L + 41, raised tlen and mk_eff), then the packed fetch, as the
+    paired driver's two_phase_merge and edge-indel fix call it; on the
+    first 128 candidate rows that need the DP."""
+    jt, tt = _tier1_pair(case)
+    jd, jb, jq = case["jax"][:3]
+    td, tb, tq = case["torch"][:3]
+    rows = tuple(r[:128] for r in _needs_rows(jt))
+    bonus = np.random.default_rng(6).integers(0, 121, size=128).astype(np.int32)
+    jp, tp = paired_params(case)
+    ref = J.score_rows(jd, jb, jq, jt.len_eff, *map(jnp.asarray, rows), jp,
+                       bonus=jnp.asarray(bonus))
+    got = T.score_rows(td, tb, tq, tt.len_eff, *map(torch.from_numpy, rows), tp,
+                       bonus=torch.from_numpy(bonus))
+    # the residual of XLA_RESIDUAL lies among these rows, 1 ulp apart
+    # again with the bonuses
+    allow = residual(case, rows[0], rows[2], ref.escalated)
+    assert_same_tuple(ref, got, allow)
+    assert_same_tuple(J.fetch_subset(ref), T.fetch_subset(got), allow)
+    assert np.asarray(ref.valid).sum() > np.asarray(ref.escalated).sum() > 0
