@@ -69,12 +69,41 @@ Phases, each printing one JSON line:
            timed on the same launches in turns (baseline, kernel,
            kernel, baseline): how an earlier commit's kernel is put
            beside the current one without committing it.
+  long     long reads through `single` with the script's error model:
+           16384 reads of 250 bp at -rl 256 and 8192 of 400 bp at -rl 400
+           (the CLI's -b 1024), and 256 reads of 1500 bp with
+           test_long_reads.py's options (-rl 1500 -d 160 -i 200 -dp 0.15
+           -mrl 100, -b 64), where the DP and affine rows take the
+           long-row kernels (a block a row). An untimed run of the first
+           4 batches (for 1500 bp, the one run, whose first batch is
+           replayed) keeps every launch, replayed bit for bit; the first
+           batch's launches at -rl 400 and at 1500 bp are timed as in the
+           kernels phase. Fails unless every kernel launched, 98% of
+           primary MAPQ >= 10 records lie within 30 bp, and on any launch
+           that differs.
+  options  `single -om 3 -omax 2` and `single -dp 0.1` on the first 16384
+           reads of the sam phase: every read takes the non-fast
+           (two-phase) path (branches' non_fast), reads/s, accuracy.
+  bam      `single -so` to a .bam on the sam phase's reads, in memory and
+           through the -sm spill: the .bai is there, the port's BAM
+           reader finds the records sorted, with the SAM run's count and
+           names, the spill gives the same record bytes; the host's
+           seconds in the sort and write (OutputWriter.close) and spills.
+  threads  `single -t 4` on the sam phase's reads: the SAM of -t 1 (the
+           sam phase's -b 1024 run), the @PG line aside.
+  card_vs_cpu  the first reads of each long and options run (256; 16
+           at 1500 bp; 512), run on the card in their phase, again on the
+           CPU: at most 2 records differing, in MAPQ +-1 only. The CPU
+           runs come last, so that the index is loaded to host memory
+           once.
 Then a `seconds` line (each phase's wall seconds), one {"kernels": [...]}
 line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
 in the timed paired run; the sums over the launches of one 16384-read
 phase-C step of its device time, its per-call time, its plain version's
-time and its bound; the launches replayed), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+time and its bound; the launches replayed; each long and options run's
+launches; the sums over the first batch's launches at -rl 400 and
+1500 bp), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
 snap_tpu_torch is not beside this file. Imports nothing of JAX.
@@ -351,16 +380,6 @@ def differing(name: str, got, ref) -> list[str]:
     return out
 
 
-def compare(name: str, got, ref) -> float:
-    """Fails unless every output of the kernel equals the plain
-    version's bit for bit; returns the largest absolute difference of
-    the float outputs (0.0)."""
-    bad = differing(name, got, ref)
-    if bad:
-        fail("kernels", f"{name}: " + "; ".join(bad))
-    return float_err(got, ref)
-
-
 # ------------------------------------------------------------------ phases
 
 
@@ -414,18 +433,38 @@ def phase_kernels(calls: dict, base: dict) -> dict:
     with a baseline library, that kernel's outputs and device time on
     the same inputs, timed in turns with the kernel. Returns name ->
     per-launch rows."""
+    summary = time_launches(calls, base)
+    for name, rows in summary.items():
+        emit({"phase": "kernels", "kernel": name, "ok": True, "launches": rows})
+    return summary
+
+
+def time_launches(calls: dict, base: dict | None = None, phase: str = "kernels",
+                  plain_reps: int = 5) -> dict:
+    """Each recorded launch again: the kernel against its plain version
+    (bit for bit), its device time, per-call time, the plain version's
+    time (median of plain_reps calls; for 0, the comparison call's own
+    time, one call between CUDA events) and the launch's bound (and a
+    baseline library's, see phase_kernels). Returns name -> per-launch
+    rows."""
     import torch
 
+    base = base or {}
     summary = {}
     for name, (_, kern, plain, _, launcher) in kernel_table().items():
         rows = []
-        for args, kw in calls[name]:
+        for args, kw in calls.get(name, ()):
             run = lambda: kern(*args, **kw)
             got = run()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             ref = plain(*args, **kw)
+            ev[1].record()
             torch.cuda.synchronize()
-            err = compare(name, got, ref)
-            row = {"shape": shape_of(name, args), "max_abs_err": err}
+            bad = differing(name, got, ref)
+            if bad:
+                fail(phase, f"{name}: " + "; ".join(bad))
+            row = {"shape": shape_of(name, args), "max_abs_err": float_err(got, ref)}
             if name in base:
                 with launcher.using(base[name]):
                     got_b = run()
@@ -440,7 +479,8 @@ def phase_kernels(calls: dict, base: dict) -> dict:
             else:
                 row["ms"] = device_ms(run)
             row["call_ms"] = cuda_ms(run)
-            row["plain_ms"] = cuda_ms(lambda: plain(*args, **kw))
+            row["plain_ms"] = (cuda_ms(lambda: plain(*args, **kw), plain_reps)
+                               if plain_reps else ev[0].elapsed_time(ev[1]))
             nbytes = tensor_bytes(args) + tensor_bytes(got)
             int_ops, fp_ops = work_ops(name, args, got)
             bms, by = bound_ms(nbytes, int_ops, fp_ops)
@@ -449,9 +489,24 @@ def phase_kernels(calls: dict, base: dict) -> dict:
                 "bound_ms": bms, "bound_by": by,
             })
             rows.append(row)
-        emit({"phase": "kernels", "kernel": name, "ok": True, "launches": rows})
         summary[name] = rows
     return summary
+
+
+def launch_sums(rows: list) -> dict:
+    """Sums over launches' rows (time_launches) of their times and
+    bounds."""
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    bound = sum(r["bound_ms"] for r in rows)
+    return {
+        "launches": len(rows),
+        "ms": sum(r["ms"] for r in rows),
+        "call_ms": sum(r["call_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": bound,
+        "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
+        "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0),
+    }
 
 
 # --------------------------------------------------------------- end to end
@@ -898,15 +953,17 @@ def run_cli(phase: str, argv: list[str], cls, entry: str, owners: list,
     }, aligner, acc
 
 
-def run_single(argv: list[str], device: str = "cuda") -> dict:
+def run_single(argv: list[str], device: str = "cuda", phase: str = "sam",
+               owners: list | None = None) -> dict:
     """One `single` command through run_cli, with the host's seconds in
-    the device step (its dispatch and the wait for its winners) and in
-    the redo paths' pipeline calls."""
+    the device step (its dispatch and the wait for its winners), in the
+    redo paths' pipeline calls and in `owners`."""
     from snap_tpu_torch.align import pipeline, single
 
-    owners = [(single.SingleEndAligner, n) for n in TIMED_METHODS]
+    owners = list(owners or [])
+    owners += [(single.SingleEndAligner, n) for n in TIMED_METHODS]
     owners += [(pipeline, n) for n in TIMED_PIPELINE]
-    run, _, acc = run_cli("sam", argv, single.SingleEndAligner, "align_file",
+    run, _, acc = run_cli(phase, argv, single.SingleEndAligner, "align_file",
                           owners, device)
     step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
     run.update({
@@ -1047,7 +1104,8 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
                         "diffs": diffs, "cpu_wall_s": recs["cpu"][1],
                         "card_wall_s": recs["cuda"][1]},
     })
-    return {"launches": runs[0]["launches"], "replays": replays}
+    return {"launches": runs[0]["launches"], "replays": replays, "fq": fq,
+            "sam": os.path.join(workdir, "out0.sam"), "reads": (reads, quals, names)}
 
 # ------------------------------------------------------- paired FASTQ -> SAM
 
@@ -1244,8 +1302,260 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
     return {"launches": run["launches"], "replays": replays}
 
 
+# --------------------------------------------- long reads, options, BAM, -t
+
+LONG_RUNS = ((250, 256, 16_384), (400, 400, 8_192))  # read length, -rl, reads
+LONG_RECORD_BATCHES = 4        # batches of each recording run whose launches are replayed
+LONG_CHECK_READS = 256         # card-vs-CPU SAM
+XL_LEN, XL_READS, XL_BATCH, XL_CHECK_READS = 1500, 256, 64, 16
+XL_REPLAY_BATCHES = 1          # batches of the 1500 bp run whose launches are replayed
+XL_OPTS = ["-rl", "1500", "-d", "160", "-i", "200", "-dp", "0.15", "-mrl", "100"]
+OPTION_RUNS = {"om": ["-om", "3", "-omax", "2"], "dp": ["-dp", "0.1"]}
+OPTIONS_READS = 16_384
+OPTIONS_CHECK_READS = 512
+BAM_SPILL_GB = "0.004"         # -sm: 4 MiB of records a sorted block, ~5 blocks
+MIN_WITHIN_30BP = 0.98         # share of primary MAPQ >= 10 records near their origin
+
+
+def recorded_run(phase: str, argv: list[str], batches: int):
+    """One `single` command (run_single) with the inputs of every kernel
+    launch of its first `batches` batches kept (their dispatch and their
+    host finalization, redo paths included), and those of its first
+    batch apart. Returns (run, calls, first-batch calls)."""
+    from snap_tpu_torch.align.single import SingleEndAligner as cls
+
+    calls = {name: [] for name in KERNEL_SOURCES}
+    first = {name: [] for name in KERNEL_SOURCES}
+    with recording(calls, inside={(cls, "_submit"): batches, (cls, "_finalize"): batches}), \
+            recording(first, inside={(cls, "_submit"): 1, (cls, "_finalize"): 1}):
+        run = run_single(argv, phase=phase)
+    return run, calls, first
+
+
+def check_run(phase: str, what: str, run: dict, out: str, n: int, want: list) -> dict:
+    """The SAM summary of a run of n reads; fails unless every read has
+    its primary record, 98% of primary MAPQ >= 10 records lie within
+    30 bp of their true position, and each kernel of `want` launched."""
+    summ = sam_summary(out)
+    if summ["primary"] != n:
+        fail(phase, f"{what}: {summ['primary']} primary records for {n} reads")
+    if summ["within_30bp_share"] < MIN_WITHIN_30BP:
+        fail(phase, f"{what}: only {summ['within_30bp_share']:.4f} of primary MAPQ >= 10 "
+                    "records within 30 bp")
+    missing = [k for k in want if run["launches"].get(k, 0) == 0]
+    if missing:
+        fail(phase, f"{what}: no launch of {missing}: {run['launches']}")
+    run["reads_per_s"] = n / run["wall_s"]
+    run["sam"] = summ
+    return summ
+
+
+def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
+               n: int) -> dict:
+    """The first n reads through argv_of(fastq, out) on the card; the
+    same on the CPU runs in phase_card_vs_cpu."""
+    fq1 = os.path.join(workdir, f"{tag}_check.fq")
+    write_fastq(fq1, reads[:n], quals[:n], names[:n])
+    o = os.path.join(workdir, f"{tag}_check_cuda.sam")
+    r = run_single(argv_of(fq1, o), phase=phase)
+    o_cpu = os.path.join(workdir, f"{tag}_check_cpu.sam")
+    return {"phase": phase, "tag": tag, "reads": n, "cpu_argv": argv_of(fq1, o_cpu),
+            "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]}
+
+
+def phase_long(seed: int, ctx: dict, workdir: str) -> tuple[dict, list]:
+    """`single` at -rl 256 (250 bp reads) and -rl 400 (400 bp) with the
+    CLI's -b 1024, and 1500 bp reads with test_long_reads.py's options:
+    an untimed recording run of the first batches (for the 1500 bp
+    reads, whose run is short, the one run) whose launches are replayed
+    bit for bit, then the timed run; the launches of the first batch at
+    -rl 400 and at 1500 bp timed like the kernels phase's. Returns the
+    runs and the card-vs-CPU checks still to run on the CPU."""
+    from snap_tpu_torch.cli import _load_index_cached
+
+    rng = np.random.default_rng(seed + 3)
+    idx_dir = ctx["idx_dir"]
+    _load_index_cached(idx_dir, "cuda")
+    runs, checks = {}, []
+    for read_len, rl, n in (*LONG_RUNS, (XL_LEN, XL_LEN, XL_READS)):
+        t_run = time.time()
+        xl = read_len == XL_LEN
+        tag = f"rl{rl}"
+        reads, quals, _, starts = simulate_reads(rng, ctx["codes"], ctx["contig_start"], n,
+                                                 read_len)
+        names = [b"l%d_%d" % (i, s + 1) for i, s in enumerate(starts.tolist())]
+        fq = os.path.join(workdir, f"{tag}.fq")
+        write_fastq(fq, reads, quals, names)
+        opts = XL_OPTS if xl else ["-rl", str(rl)]
+        bopt = ["-b", str(XL_BATCH)] if xl else []
+        n_rec = n if xl else LONG_RECORD_BATCHES * 1024
+        fq_rec = fq if xl else os.path.join(workdir, f"{tag}_rec.fq")
+        if not xl:
+            write_fastq(fq_rec, reads[:n_rec], quals[:n_rec], names[:n_rec])
+        out_rec = os.path.join(workdir, f"{tag}_rec.sam")
+        rec, calls, first = recorded_run(
+            "long", ["single", idx_dir, fq_rec, "-o", out_rec, *opts, *bopt],
+            XL_REPLAY_BATCHES if xl else LONG_RECORD_BATCHES)
+        replays = replay_launches(calls, f"{tag} batches", "long")
+        if xl:
+            run, out = rec, out_rec
+        else:
+            out = os.path.join(workdir, f"{tag}.sam")
+            run = run_single(["single", idx_dir, fq, "-o", out, *opts], phase="long")
+        check_run("long", tag, run, out, n, list(KERNEL_SOURCES))
+        empty = [k for k in KERNEL_SOURCES if replays[k]["launches"] == 0]
+        if empty:
+            fail("long", f"{tag}: no launch of {empty} recorded in the first batches")
+        timed = {}
+        if rl in (400, XL_LEN):
+            timed = {k: launch_sums(v) for k, v in
+                     time_launches(first, phase="long", plain_reps=0).items() if v}
+        n_chk = XL_CHECK_READS if xl else LONG_CHECK_READS
+        argv_of = lambda f, o, opts=opts, n_chk=n_chk: (
+            ["single", idx_dir, f, "-o", o, *opts, "-b", str(n_chk)])
+        checks.append(card_check("long", tag, argv_of, workdir, reads, quals, names, n_chk))
+        runs[tag] = {"read_len": read_len, "reads": n, "launches": run["launches"],
+                     "replays": replays, "first_batch": timed}
+        emit({"phase": "long", "ok": True, "run": tag, "read_len": read_len, "reads": n,
+              "options": opts + bopt, "timed_run": run, "recorded_run": {
+                  "reads": n_rec, "wall_s": rec["wall_s"], "launches": rec["launches"],
+                  "batches_replayed": XL_REPLAY_BATCHES if xl else LONG_RECORD_BATCHES},
+              "replays": replays, "first_batch_launches": timed,
+              "run_s": time.time() - t_run})
+    return runs, checks
+
+
+def phase_options(ctx: dict, sam: dict, workdir: str) -> tuple[dict, list]:
+    """`single -om 3 -omax 2` and `single -dp 0.1` on the first 16,384
+    reads of the sam phase: every batch takes the non-fast (two-phase)
+    path. Returns the runs and the card-vs-CPU checks still to run."""
+    from snap_tpu_torch.cli import _load_index_cached
+
+    idx_dir = ctx["idx_dir"]
+    _load_index_cached(idx_dir, "cuda")
+    reads, quals, names = sam["reads"]
+    n = OPTIONS_READS
+    fq = os.path.join(workdir, "options.fq")
+    write_fastq(fq, reads[:n], quals[:n], names[:n])
+    runs, checks = {}, []
+    for name, opts in OPTION_RUNS.items():
+        out = os.path.join(workdir, f"options_{name}.sam")
+        run = run_single(["single", idx_dir, fq, "-o", out, *opts], phase="options")
+        check_run("options", name, run, out, n, list(KERNEL_SOURCES))
+        if run["branches"].get("non_fast") != n:
+            fail("options", f"{name}: the non-fast path took {run['branches'].get('non_fast')} "
+                            f"of {n} reads")
+        argv_of = lambda f, o, opts=opts: (
+            ["single", idx_dir, f, "-o", o, *opts, "-b", str(OPTIONS_CHECK_READS)])
+        checks.append(card_check("options", name, argv_of, workdir, reads, quals, names,
+                                 OPTIONS_CHECK_READS))
+        runs[name] = {"launches": run["launches"], "reads_per_s": run["reads_per_s"]}
+        emit({"phase": "options", "ok": True, "run": name, "options": opts, "reads": n,
+              "timed_run": run})
+    return runs, checks
+
+
+def bam_body(path: str) -> bytes:
+    """The decompressed records of a BAM file, its header skipped."""
+    from snap_tpu_torch.io.bgzf import decompress_all
+
+    with open(path, "rb") as f:
+        data = decompress_all(f.read())
+    p = 8 + int.from_bytes(data[4:8], "little")
+    n_ref = int.from_bytes(data[p : p + 4], "little")
+    p += 4
+    for _ in range(n_ref):
+        p += 8 + int.from_bytes(data[p : p + 4], "little")
+    return data[p:]
+
+
+def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
+    """`single -so` to a .bam on the sam phase's reads, in memory and
+    through the -sm spill: the .bai is written, the port's BAM reader
+    finds the records sorted, with the SAM run's count and names, and
+    the spill gives the in-memory run's record bytes. The host's seconds
+    in OutputWriter.close (sort, duplicate marking, BAM and .bai write)
+    and in the spills."""
+    from snap_tpu_torch.cli import _load_index_cached
+    from snap_tpu_torch.io import output
+    from snap_tpu_torch.io.bam import read_bam
+
+    idx_dir = ctx["idx_dir"]
+    _load_index_cached(idx_dir, "cuda")
+    sam_names = sorted(ln.split(b"\t", 1)[0] for ln in sam_records(sam["sam"]))
+    owners = [(output.OutputWriter, "close"), (output.OutputWriter, "_spill_block")]
+    res = {}
+    for name, extra in (("sorted", []), ("spill", ["-sm", BAM_SPILL_GB])):
+        out = os.path.join(workdir, f"{name}.bam")
+        run = run_single(["single", idx_dir, sam["fq"], "-o", out, "-so", *extra],
+                         phase="bam", owners=owners)
+        if not os.path.exists(out + ".bai"):
+            fail("bam", f"{name}: no .bai beside the BAM")
+        _, _, recs = read_bam(out)
+        keys = [(r.ref_id if r.ref_id >= 0 else 1 << 30, r.pos0) for r in recs]
+        if keys != sorted(keys):
+            fail("bam", f"{name}: the BAM records are not sorted")
+        if sorted(r.qname for r in recs) != sam_names:
+            fail("bam", f"{name}: {len(recs)} BAM records, not the SAM run's {len(sam_names)} names")
+        hs = run["host_seconds"]
+        spills = hs.get("_spill_block", {}).get("calls", 0) + hs.get(
+            "close/_spill_block", {}).get("calls", 0)
+        if name == "spill" and spills < 2:
+            fail("bam", f"the -sm {BAM_SPILL_GB} run spilled {spills} blocks")
+        res[name] = {
+            "wall_s": run["wall_s"], "reads_per_s": SAM_READS / run["wall_s"],
+            "records": len(recs), "duplicates": sum(1 for r in recs if r.flag & 0x400),
+            "unmapped": sum(1 for r in recs if r.ref_id < 0),
+            "sort_and_write_s": hs.get("close", {}).get("s"),
+            "spill_s": hs.get("_spill_block", {}).get("s", 0.0), "spilled_blocks": spills,
+            "seconds_writing": run["seconds_writing"], "bam_bytes": os.path.getsize(out),
+            "bai_bytes": os.path.getsize(out + ".bai"),
+        }
+    body = {k: bam_body(os.path.join(workdir, f"{k}.bam")) for k in res}
+    if body["spill"] != body["sorted"]:
+        fail("bam", "the spilled BAM's records differ from the in-memory sort's")
+    bai = {k: open(os.path.join(workdir, f"{k}.bam.bai"), "rb").read() for k in res}
+    res["spill_same_record_bytes"] = True
+    res["spill_same_bai_bytes"] = bai["spill"] == bai["sorted"]
+    emit({"phase": "bam", "ok": True, "reads": SAM_READS, **res})
+    return res
+
+
+def phase_threads(ctx: dict, sam: dict, workdir: str) -> dict:
+    """`single -t 4` on the sam phase's reads: the parse threads' reader
+    gives the SAM of the sam phase's -t 1 run, the @PG line aside."""
+    out = os.path.join(workdir, "t4.sam")
+    run = run_single(["single", ctx["idx_dir"], sam["fq"], "-o", out, "-t", "4"],
+                     phase="threads")
+    body = lambda p: [ln for ln in open(p, "rb").read().split(b"\n")
+                      if not ln.startswith(b"@PG")]
+    if body(out) != body(sam["sam"]):
+        fail("threads", "-t 4 wrote other SAM records than -t 1")
+    if run["branches"].get("reader_range_split") != SAM_READS:
+        fail("threads", f"the -t 4 reader parsed {run['branches']}")
+    res = {"wall_s": run["wall_s"], "reads_per_s": SAM_READS / run["wall_s"],
+           "same_sam_as_t1": True, "branches": run["branches"]}
+    emit({"phase": "threads", "ok": True, "reads": SAM_READS, **res})
+    return res
+
+
+def phase_card_vs_cpu(checks: list) -> list:
+    """The CPU's runs of the card checks (card_check), compared with the
+    card's records (card_vs_cpu). They come after every card phase: the
+    CPU runs load the index to host memory, once."""
+    out = []
+    for c in checks:
+        r = run_single(c["cpu_argv"], device="cpu", phase=c["phase"])
+        diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
+        out.append({"phase": c["phase"], "run": c["tag"], "reads": c["reads"],
+                    "records_differ": len(diffs), "diffs": diffs,
+                    "card_wall_s": c["card_wall_s"], "cpu_wall_s": r["wall_s"]})
+    emit({"phase": "card_vs_cpu", "ok": True, "checks": out})
+    return out
+
+
 def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
-                 paired: dict) -> dict:
+                 paired: dict, long: dict, options: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
     run (-b 1024) and in the timed paired run (launches_paired), and the
     sums over the launches_step_c launches of one 16384-read phase-C step
@@ -1254,7 +1564,11 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     device time, when there was one). The launches replayed bit for bit
     are counted apart (the -b 1024 run's first steps' and redo paths';
     the paired recording run's first batches' and redo paths', summed in
-    paired_launches_replayed); max_abs_err covers them too."""
+    paired_launches_replayed); max_abs_err covers them too. The long
+    and options phases add each run's launches, the launches replayed,
+    and the sums over the first batch's launches at -rl 400 and at
+    1500 bp (`rl400`, `rl1500`: device time, per-call time, bound; the
+    plain versions timed once, by their comparison call)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -1281,6 +1595,15 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
         }
         if all("base_ms" in r for r in rows):
             k["base_ms"] = sum(r["base_ms"] for r in rows)
+        k["launches_long"] = {t: r["launches"][name] for t, r in long.items()}
+        k["long_launches_replayed"] = {t: r["replays"][name]["launches"]
+                                       for t, r in long.items()}
+        k["launches_options"] = {t: r["launches"][name] for t, r in options.items()}
+        k["max_abs_err"] = max([k["max_abs_err"], *(
+            r["replays"][name]["max_abs_err"] for r in long.values())])
+        for t, r in long.items():
+            if name in r["first_batch"]:
+                k[t] = r["first_batch"][name]
         out.append(k)
     return {"kernels": out}
 
@@ -1312,7 +1635,8 @@ def main() -> None:
     seconds = {}
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
-        step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd, args.profile)
+        step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd,
+                                              args.profile)
         if not all(step_launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
             fail("e2e", f"a kernel was never launched in the step: {step_launches}")
         seconds["e2e"], t0 = time.time() - t0, time.time()
@@ -1320,11 +1644,22 @@ def main() -> None:
         seconds["sam"], t0 = time.time() - t0, time.time()
         paired = phase_paired(args.seed, ctx, wd)
         seconds["paired"], t0 = time.time() - t0, time.time()
-    ksum = phase_kernels(calls, base)
-    seconds["kernels"] = time.time() - t0
+        long, long_checks = phase_long(args.seed, ctx, wd)
+        seconds["long"], t0 = time.time() - t0, time.time()
+        options, option_checks = phase_options(ctx, sam, wd)
+        seconds["options"], t0 = time.time() - t0, time.time()
+        phase_bam(ctx, sam, wd)
+        seconds["bam"], t0 = time.time() - t0, time.time()
+        phase_threads(ctx, sam, wd)
+        seconds["threads"], t0 = time.time() - t0, time.time()
+        ksum = phase_kernels(calls, base)
+        seconds["kernels"], t0 = time.time() - t0, time.time()
+        phase_card_vs_cpu(long_checks + option_checks)
+        seconds["card_vs_cpu"] = time.time() - t0
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})
-    emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired))
+    emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired,
+                      long, options))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -47,9 +47,8 @@ from ..index.index import (
     u64_le,
     u64_min,
 )
-from ..ops.affine import affine_extend_plain
 from ..ops.affine_cuda import affine_extend_cuda
-from ..ops.dp import LOG_PERFECT, fitting_edit_distance_plain
+from ..ops.dp import LOG_PERFECT
 from ..ops.dp_cuda import fitting_edit_distance_cuda
 from ..ops.gapless_cuda import gapless_prescreen_cuda
 from ..ops.sums import ordered_sum
@@ -354,12 +353,7 @@ def _score_rows(
         s_bonus = torch.zeros_like(s_plen)
     s_plen = s_plen.to(i32)
     mk_eff = torch.clamp_max(params.max_k + s_bonus, 126)
-    # snap_tpu's kernel bounds (its Pallas kernels pack a column index
-    # into 8 or 9 low bits): outside them (long-read shapes) the plain
-    # recurrences run on every device, as snap_tpu runs its jnp versions
     TW = L + AG_W + 1
-    ag_fn = affine_extend_cuda if TW <= 256 else affine_extend_plain
-    dp_fn = fitting_edit_distance_cuda if TW + 1 <= 512 else fitting_edit_distance_plain
 
     G = didx.genome.shape[0]
     seed = params.seed_len
@@ -385,7 +379,7 @@ def _score_rows(
     tail_text = gather_window(s_loc + tail_start.to(i64))
     tail_tlen = torch.clamp_max(tail_plen + params.max_k + s_bonus, TW - 1).to(i32)
     ebonus_tail = torch.where(s_dir == 1, params.ag_b5, params.ag_b3).to(i32)
-    tail = ag_fn(
+    tail = affine_extend_cuda(
         tail_pat, tail_logq, tail_plen, tail_text, tail_tlen,
         s_plen, ebonus_tail,
         match=params.ag_match, sub=params.ag_sub,
@@ -402,7 +396,7 @@ def _score_rows(
     ).contiguous()
     head_tlen = torch.clamp_max(head_plen + params.max_k + s_bonus, TW - 1).to(i32)
     ebonus_head = torch.where(s_dir == 1, params.ag_b3, params.ag_b5).to(i32)
-    head = ag_fn(
+    head = affine_extend_cuda(
         head_pat, head_logq, head_plen, head_text, head_tlen,
         s_plen, ebonus_head,
         match=params.ag_match, sub=params.ag_sub,
@@ -412,8 +406,8 @@ def _score_rows(
     # seed-anchored Landau-Vishkin: tail forward from the seed end plus
     # reverse LV over the head, on the rows the affine extensions use
     # (BaseAligner.cpp:1160-1176, LandauVishkin.h:100)
-    lv_tail = dp_fn(tail_pat, tail_logq, tail_plen, tail_text, anchored=True)
-    lv_head = dp_fn(head_pat, head_logq, head_plen, head_text, anchored=True)
+    lv_tail = fitting_edit_distance_cuda(tail_pat, tail_logq, tail_plen, tail_text, anchored=True)
+    lv_head = fitting_edit_distance_cuda(head_pat, head_logq, head_plen, head_text, anchored=True)
     t_empty = tail_plen == 0
     h_empty = head_plen == 0
     zf = torch.zeros((), dtype=f32, device=s_pat.device)
@@ -851,6 +845,25 @@ def score_candidates(
         params, tier1_only=tier1_only, max_k_bonus=max_k_bonus,
     )
     return res if tier1_only else res[0]
+
+
+def align_single_device(
+    didx: DeviceIndex,
+    bases: torch.Tensor,   # [B, L] uint8
+    quals: torch.Tensor,   # [B, L] uint8
+    lens: torch.Tensor,    # [B] int32
+    params: AlignParams,
+) -> SingleAlignOut:
+    """Monolithic single call (the mesh / dry-run / tests path):
+    candidates, then both scoring tiers on every candidate."""
+    (cand_loc, cand_off, cand_dir, cand_valid, cand_weight,
+     popular, trunc, len_eff, n_lookups) = _align_impl(didx, bases, quals, lens, params)
+    rc_bases, rc_quals = reverse_complement_reads(bases, quals, len_eff)
+    return _score_from_candidates(
+        didx, bases, rc_bases, quals, rc_quals, len_eff,
+        cand_loc, cand_off, cand_dir, cand_valid, cand_weight,
+        popular, trunc, n_lookups, params, tier1_only=False,
+    )[0]
 
 
 def align_tier1(

@@ -11,8 +11,11 @@ finalized (merge/MAPQ/CIGAR/SAM) on the host.
 `SingleEndAligner.branches` counts how many reads took each host branch
 (planned native emission, per-read records, the batched AG CIGARs,
 fallback rows, the wide redo of truncated and edge-indel rows, the
-dp_overflow redo, the two-phase path) and how many batches were
-finalized, so a run can show which paths it exercised.
+dp_overflow redo, the two-phase path, `non_fast`: the batches that
+-om/-ea/-dp send down the two-phase path from the start) and which
+FASTQ reader parsed them (`reader_serial`, or `reader_range_split` for
+the -t N parse threads), and how many batches were finalized, so a run
+can show which paths it exercised.
 """
 
 from __future__ import annotations
@@ -581,6 +584,47 @@ def _ref_span(cigar: str) -> int:
     )
 
 
+def _cat_batches(batches: list[ReadBatch]) -> ReadBatch:
+    if len(batches) == 1:
+        return batches[0]
+    return ReadBatch(
+        ids=[i for b in batches for i in b.ids],
+        bases=np.concatenate([b.bases for b in batches]),
+        quals=np.concatenate([b.quals for b in batches]),
+        lengths=np.concatenate([b.lengths for b in batches]),
+    )
+
+
+def _slice_batch(b: ReadBatch, lo: int, hi: int) -> ReadBatch:
+    return ReadBatch(ids=b.ids[lo:hi], bases=b.bases[lo:hi],
+                     quals=b.quals[lo:hi], lengths=b.lengths[lo:hi])
+
+
+def _rebatch(source, batch_size: int):
+    """The reads of `source` in batches of batch_size (the last one
+    shorter). The -t N reader ends every byte range with a short batch,
+    and a batch's make-up decides its batch-level paths (the DP tier's
+    overflow, the phase-C switch), so without this -t N would align
+    other batches than -t 1 and write other records. snap_tpu aligns
+    the range-split batches as they come (ROADMAP C)."""
+    pend, n = [], 0
+    for b in source:
+        if not len(b):
+            continue
+        pend.append(b)
+        n += len(b)
+        if n < batch_size:
+            continue
+        cat, k = _cat_batches(pend), 0
+        while n - k >= batch_size:
+            yield _slice_batch(cat, k, k + batch_size)
+            k += batch_size
+        pend = [_slice_batch(cat, k, n)] if k < n else []
+        n -= k
+    if n:
+        yield _cat_batches(pend)
+
+
 class SingleEndAligner:
     def __init__(
         self,
@@ -759,6 +803,9 @@ class SingleEndAligner:
                 ("fast", win, out, dev_bases, dev_quals, dev_lens),
                 front_clips,
             )
+        # -om / -ea / -dp: the per-candidate extras need every scored
+        # candidate on the host, so the batch takes the two-phase path
+        self.branches["non_fast"] += len(batch)
         t1 = pipeline.align_tier1(
             self.index.device, dev_bases, dev_quals, dev_lens, self.params,
         )
@@ -1523,19 +1570,23 @@ class SingleEndAligner:
             and not fastq_path.endswith(".gz")
         ):
             # -t N: RangeSplitter parse threads over record-aligned
-            # byte ranges (RangeSplitter.h:38) need io/range_split, which
-            # is not ported yet
-            raise NotImplementedError(
-                "-t > 1 (parallel FASTQ parsing) arrives with io/range_split "
-                "(ROADMAP A11)"
-            )
+            # byte ranges (RangeSplitter.h:38); output order unchanged,
+            # and the reads re-cut into -t 1's batches (see _rebatch)
+            from ..io.range_split import parallel_read_batches
+
+            reader = "reader_range_split"
+            source = _rebatch(parallel_read_batches(
+                fastq_path, self.batch_size, self.max_read_len,
+                threads=self.threads,
+            ), self.batch_size)
         else:
+            reader = "reader_serial"
             source = single_batches(
                 fastq_path, self.batch_size, self.max_read_len,
                 keep_secondary=self.read_secondary,
                 force_kind=self.force_kind, force_gzip=self.force_gzip,
             )
-        batches = iter(ReadAheadQueue(source))
+        batches = iter(ReadAheadQueue(self._count_reads(source, reader)))
         # pipelined loop: batch i+1 is dispatched to the device before
         # batch i's host finalization/emission (double-buffered, the
         # moral equivalent of SNAP's reader/aligner thread decoupling)
@@ -1545,6 +1596,12 @@ class SingleEndAligner:
             self.close()
         self.stats.align_seconds = time.time() - t0
         return self.stats
+
+    def _count_reads(self, source, branch: str):
+        """The batches of `source`, their reads counted in branches[branch]."""
+        for batch in source:
+            self.branches[branch] += len(batch)
+            yield batch
 
     def _align_file_loop(self, batches, writer, plan_ok, progress):
         pending = None

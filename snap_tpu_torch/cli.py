@@ -9,8 +9,10 @@ argparse's default help is not an option.
 The device is a keyword of the Python entry point, main(argv,
 device=None): the CUDA card unless the caller passes device="cpu". It
 is not a command-line flag, so the @PG CL: field of the SAM header holds
-the same arguments as snap_tpu's. The apps commands, -ishards > 1 and
--t > 1 are not ported yet: they exit 1 naming their ROADMAP item.
+the same arguments as snap_tpu's. The apps commands and -ishards > 1 are
+not ported yet: they exit 1 naming their ROADMAP item. After the stats
+table a `single` or `paired` run prints its aligner's host branches
+(the reads or pairs of each path it took) to stderr.
 """
 
 from __future__ import annotations
@@ -214,8 +216,6 @@ def cmd_single(args: list[str], device=None) -> int:
     opts = _parse_align_options(args[i:], batch_size=1024)
     if opts["ishards"] > 1:
         return _not_ported("-ishards (index sharding over devices)", "A13")
-    if opts["threads"] > 1:
-        return _not_ported("-t > 1 (parallel FASTQ parsing)", "A11")
     from .errors import configure as _configure_errors
 
     _configure_errors(opts["quiet"], opts["very_quiet"], opts["hdp"])
@@ -260,7 +260,7 @@ def cmd_single(args: list[str], device=None) -> int:
         return stats
 
     return _run_with_writer(
-        index, "single " + " ".join(args), opts, run_all,
+        index, "single " + " ".join(args), opts, run_all, aligner,
     )
 
 
@@ -281,8 +281,7 @@ def cmd_paired(args: list[str], device=None) -> int:
     opts = _parse_align_options(args[i:])
     if opts["ishards"] > 1:
         return _not_ported("-ishards (index sharding over devices)", "A13")
-    if opts["threads"] > 1:
-        return _not_ported("-t > 1 (parallel FASTQ parsing)", "A11")
+    # -t is parsed and, as in snap_tpu, only `single` uses it
     from .errors import configure as _configure_errors
 
     _configure_errors(opts["quiet"], opts["very_quiet"], opts["hdp"])
@@ -325,7 +324,7 @@ def cmd_paired(args: list[str], device=None) -> int:
     )
     return _run_with_writer(
         index, "paired " + " ".join(args), opts,
-        lambda writer: aligner.align_files(fq1, fq2, writer),
+        lambda writer: aligner.align_files(fq1, fq2, writer), aligner,
     )
 
 
@@ -600,7 +599,7 @@ def _parse_align_options(rest: list[str], batch_size: int = 512) -> dict:
     return o
 
 
-def _run_with_writer(index, command_line: str, opts: dict, run) -> int:
+def _run_with_writer(index, command_line: str, opts: dict, run, aligner) -> int:
     from .io.output import OutputWriter
 
     out_path = opts["out_path"]
@@ -660,6 +659,9 @@ def _run_with_writer(index, command_line: str, opts: dict, run) -> int:
         stats.profile = opts["profile"]
         stats.profile_ag = opts["profile_ag"]
         stats.print_table()
+        print("Host branches: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(aligner.branches.items())
+        ), file=sys.stderr)
         if opts["perf_file"]:
             from .constants import DEFAULT_MAX_DIST, DEFAULT_MAX_HITS
 

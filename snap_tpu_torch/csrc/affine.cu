@@ -37,6 +37,15 @@
 //   computes only columns that a row of its pass has. Persistent single-warp blocks of a second
 //   kernel then take passes one at a time from a shared counter, so a
 //   short pass never holds a block of long ones back.
+// - Rows of more than 256 columns (long reads, L <= 512): one row per
+//   pass on 32 lanes of 10, 12, 14 or 16 columns (C rounded up to even:
+//   four instances, not eight; a lane's columns past plen are dead, as
+//   in any pass). Ten registers a column put such a lane past the 128
+//   that 16 resident warps per SM leave, so these passes go to a list
+//   of their own, which a third kernel built for 8 resident warps takes
+//   before the others (ptxas: 255 registers, 188 bytes spilled). The
+//   local readout's column key keeps 4 bits (C <= 16), and the counts
+//   pack as in the plain version.
 // - No scan. Within a row's G lanes the DP runs as an anti-diagonal
 //   wavefront: lane k owns columns [kC, kC + C) and works on text row
 //   s - k at step s, so the F carry (value, log-prob, counts, run start)
@@ -45,12 +54,25 @@
 // - Readouts are kept per lane over its own cells and reduced once per
 //   row at the end: global at the lane holding column plen-1 (>= over
 //   rows), local by (larger value, earlier row, larger column).
+// - Rows of more than 512 columns (reads past 512 bp): a fourth kernel,
+//   one block of rows::kThreads threads per row (persistent blocks taking
+//   the plan's big rows), each thread a run of consecutive columns whose
+//   nine state planes live in the block's scratch in device memory, any
+//   width. Per text row: the threads publish their last column's H (the
+//   next thread's diagonal input), walk their columns for M, block-scan
+//   the F keys (csrc/block_rows.cuh, the plain version's cummax), walk
+//   again for F, H and E, and block-reduce the local readout. A simple
+//   kernel, not a fast one.
 // Float arithmetic is __fadd_rn/__fmul_rn in the plain version's order
 // (and -fmad=false); the F log-prob is fadd(rlp, fmul(j - rj - 1,
 // log_ext)) from the carried run start, so the log-probabilities match
 // the plain version bit for bit.
 
 #include <cuda_runtime.h>
+
+#include <climits>
+
+#include "block_rows.cuh"
 
 namespace {
 
@@ -59,13 +81,20 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWindow = 32;  // rows sorted and planned together
 constexpr int kPlanWarps = 4;
 constexpr int kPassWarpsPerSM = 16;  // resident at <= 128 registers
+constexpr int kXlWarpsPerSM = 8;     // resident at <= 255 registers
+constexpr int kMaxCols = 512;        // 32 lanes of 16 columns; longer: big
+constexpr int kXlCols = 256;         // longer rows take the xl passes
+constexpr int kHeader = 8;           // ints before the pass records
 
 // out_i holds the N x 7 outputs, then (at a 16-byte boundary) the plan:
-// a 4-int header (long passes planned, short passes planned, passes
-// taken) and N slots of pass records, 8 ints each: the rows of its
-// segments (-1: none) and (G << 8) | C. Long passes fill the slots from
+// an 8-int header (long passes planned, short passes planned, passes
+// taken, xl rows planned, xl rows taken, big rows planned, big rows
+// taken), N slots of pass records, 8 ints each: the rows of its
+// segments (-1: none) and (G << 8) | C, and N ints of xl rows (from the
+// front) and big rows (from the back). Long passes fill the slots from
 // the front, short ones from the back; there are never more passes than
-// rows. ops/affine_cuda.py allocates it (plan_ints there).
+// rows.
+// ops/affine_cuda.py allocates it (plan_ints there).
 __host__ __device__ inline long plan_offset(int N) {
   return ((long)N * 7 + 3) & ~3L;
 }
@@ -315,11 +344,17 @@ __device__ __forceinline__ void run_pass(const Args& a, const int* rec) {
 
 // Lanes per row of a pass whose largest row has mp columns: the
 // narrowest G with C = ceil(mp / G) <= 5, so that a lane's columns stay
-// in registers at 16 warps per SM; 32 beyond 160 columns (C <= 8). With
-// fewer than 4 rows per resident warp, every pass takes one row on 32
-// lanes, so that the few rows still occupy the card.
+// in registers at 16 warps per SM; 32 beyond 160 columns (C <= 8; past
+// kXlCols an xl pass). With fewer than 4 rows per resident warp, every
+// pass takes one row on 32 lanes, so that the few rows still occupy the
+// card.
 __device__ __forceinline__ int pass_width(int mp, bool wide) {
   return wide ? 32 : (mp <= 40 ? 8 : (mp <= 80 ? 16 : 32));
+}
+
+// Columns per lane of an xl pass over a row of pl > kXlCols columns
+__device__ __forceinline__ int xl_cols(int pl) {
+  return ((pl + 31) / 32 + 1) & ~1;
 }
 
 __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
@@ -348,12 +383,28 @@ __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
 #undef SNAP_AG_PASS
 }
 
+__device__ __forceinline__ void dispatch_xl(const Args& a, const int* rec) {
+  const int C = rec[4] & 0xff;
+#define SNAP_AG_PASS(CC)         \
+  if (C == CC) {                 \
+    run_pass<32, CC>(a, rec);    \
+    return;                      \
+  }
+  SNAP_AG_PASS(10)
+  SNAP_AG_PASS(12)
+  SNAP_AG_PASS(14)
+  SNAP_AG_PASS(16)
+#undef SNAP_AG_PASS
+}
+
 // One warp per window of 32 rows: rows without a cell get the initial
 // readouts; the others are sorted by (plen, tlen), largest first, and cut
 // into passes: the next 32/G rows share a warp, G lanes each, with
 // C = ceil(max plen / G) columns per lane (the first row of a pass is
 // its largest). The passes go to the plan in out_i, those over rows of
-// more than 40 columns to the long list, which is taken first.
+// more than 40 columns to the long list, which is taken first, rows of
+// more than kXlCols columns to the xl list and rows of more than
+// kMaxCols to the big list.
 __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const long r0 =
@@ -368,7 +419,10 @@ __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
   const bool live = pl > 0 && tl > 0;
   if (row < a.N && !live)
     write_row(a, (int)row, -1, 0, 0, a.neg_f, -1, 0, 0, 0, a.neg_f);
-  int key = live ? (pl << 14) | (min(tl, 511) << 5) | lane : lane;
+  // plen (capped at kMaxCols + 1: past it, a big row) in bits 15-24,
+  // tlen (capped, it only orders) in 5-14
+  int key = live ? (min(pl, kMaxCols + 1) << 15) | (min(tl, 1023) << 5) | lane
+                 : lane;
 #pragma unroll
   for (int kk = 2; kk <= 32; kk <<= 1) {
 #pragma unroll
@@ -382,30 +436,43 @@ __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
   // lane q now holds the q-th largest row
   const int nlive = __popc(__ballot_sync(kFull, live));
   const int srow = (int)r0 + (key & 31);
-  const int spl = key >> 14;
+  const int spl = key >> 15;
   const bool wide = a.N < 4 * a.slots;
-  int nlong = 0, nshort = 0;
+  int nlong = 0, nshort = 0, nxl = 0, nbig = 0;
   for (int q = 0; q < nlive;) {
     const int mp = __shfl_sync(kFull, spl, q);
-    ++(mp > 40 ? nlong : nshort);
+    ++(mp > kMaxCols ? nbig
+                     : (mp > kXlCols ? nxl : (mp > 40 ? nlong : nshort)));
     q += 32 / pass_width(mp, wide);
   }
-  int blong = 0, bshort = 0;
+  int blong = 0, bshort = 0, bxl = 0, bbig = 0;
   if (lane == 0) {
     if (nlong) blong = atomicAdd(&a.plan[0], nlong);
     if (nshort) bshort = atomicAdd(&a.plan[1], nshort);
+    if (nxl) bxl = atomicAdd(&a.plan[3], nxl);
+    if (nbig) bbig = atomicAdd(&a.plan[5], nbig);
   }
   blong = __shfl_sync(kFull, blong, 0);
   bshort = __shfl_sync(kFull, bshort, 0);
+  bxl = __shfl_sync(kFull, bxl, 0);
+  bbig = __shfl_sync(kFull, bbig, 0);
   for (int q = 0; q < nlive;) {
     const int mp = __shfl_sync(kFull, spl, q);
     const int G = pass_width(mp, wide);
     const int R = 32 / G;
     const int rr = __shfl_sync(kFull, srow, min(q + lane, 31));
-    const long slot = mp > 40 ? blong++ : a.N - 1 - bshort++;
-    int* rec = a.plan + 4 + 8 * slot;
-    if (lane < 4) rec[lane] = (lane < R && q + lane < nlive) ? rr : -1;
-    if (lane == 4) rec[4] = (G << 8) | ((mp + G - 1) / G);
+    if (mp > kMaxCols) {  // one row, lane 0's
+      if (lane == 0) a.plan[kHeader + 8L * a.N + a.N - 1 - bbig] = rr;
+      ++bbig;
+    } else if (mp > kXlCols) {  // G = 32: one row, lane 0's
+      if (lane == 0) a.plan[kHeader + 8L * a.N + bxl] = rr;
+      ++bxl;
+    } else {
+      const long slot = mp > 40 ? blong++ : a.N - 1 - bshort++;
+      int* rec = a.plan + kHeader + 8 * slot;
+      if (lane < 4) rec[lane] = (lane < R && q + lane < nlive) ? rr : -1;
+      if (lane == 4) rec[4] = (G << 8) | ((mp + G - 1) / G);
+    }
     q += R;
   }
 }
@@ -420,7 +487,189 @@ __global__ void __launch_bounds__(32, kPassWarpsPerSM) pass_kernel(const Args a)
     t = __shfl_sync(kFull, t, 0);
     if (t >= total) return;
     const long slot = t < nlong ? t : a.N - 1 - (t - nlong);
-    dispatch(a, a.plan + 4 + 8 * slot);
+    dispatch(a, a.plan + kHeader + 8 * slot);
+  }
+}
+
+// Persistent warps of up to 255 registers, each taking the next xl row
+// of the plan until none is left.
+__global__ void __launch_bounds__(32, kXlWarpsPerSM) pass_xl_kernel(const Args a) {
+  const int total = a.plan[3];
+  const int* rows = a.plan + kHeader + 8L * a.N;
+  for (;;) {
+    int t = 0;
+    if (threadIdx.x == 0) t = atomicAdd(&a.plan[4], 1);
+    t = __shfl_sync(kFull, t, 0);
+    if (t >= total) return;
+    const int row = rows[t];
+    const int rec[5] = {row, -1, -1, -1,
+                        (32 << 8) | xl_cols(clamp_len(a.plen[row], a.L))};
+    dispatch_xl(a, rec);
+  }
+}
+
+// Persistent blocks, each taking the next big row of the plan (more than
+// kMaxCols columns) until none is left; `scratch` holds 9 planes of L
+// words per block.
+__global__ void __launch_bounds__(rows::kThreads) pass_big_kernel(
+    const Args a, int* __restrict__ scratch) {
+  __shared__ long long tot[rows::kWarps];
+  __shared__ int lh[rows::kThreads], lhc[rows::kThreads];
+  __shared__ float lhl[rows::kThreads];
+  __shared__ int next;
+  const int t = threadIdx.x;
+  const int L = a.L, OPEN = a.OPEN, EXT = a.EXT;
+  const float log_open = a.log_open, log_ext = a.log_ext;
+  int* h = scratch + (long)blockIdx.x * 9 * L;
+  int* hc = h + L;
+  int* e = hc + L;
+  int* ec = e + L;
+  int* m = ec + L;
+  int* mc = m + L;
+  float* hl = (float*)(mc + L);
+  float* el = hl + L;
+  float* ml = el + L;
+  const int total = a.plan[5];
+  const int* big = a.plan + kHeader + 8L * a.N + a.N - 1;  // big[-q]
+
+  for (;;) {
+    if (t == 0) next = atomicAdd(&a.plan[6], 1);
+    __syncthreads();
+    const int q = next;
+    if (q >= total) return;  // the same for the whole block
+    const int row = big[-q];
+    const int pl = clamp_len(a.plen[row], L), tl = clamp_len(a.tlen[row], a.T);
+    const int K = (pl + rows::kThreads - 1) / rows::kThreads;
+    const int j0 = min(t * K, pl), j1 = min(j0 + K, pl);
+    const int si = a.sinit[row];
+    const long prow = (long)row * L;
+    const unsigned char* trow = a.text + (long)row * a.T;
+    // row -1: leading pattern insertions charged from score_init
+    for (int j = j0; j < j1; ++j) {
+      h[j] = max(0, si - OPEN - j * EXT);
+      hl[j] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
+      hc[j] = (j + 1) << 10;
+      e[j] = 0;
+      el[j] = a.neg_f;
+      ec[j] = 0;
+    }
+    // the global readout stays with the thread of column plen-1, the
+    // local one with thread 0
+    int bg = -1, bg_row = 0, bg_ct = 0;
+    float bg_lp = a.neg_f;
+    int bl = -1, bl_row = 0, bl_col = 0, bl_ct = 0;
+    float bl_lp = a.neg_f;
+
+    for (int i = 0; i < tl; ++i) {
+      const int tb = trow[i];
+      const bool tbn = tb >= 4;
+      if (j1 > j0) {
+        lh[t] = h[j1 - 1];
+        lhl[t] = hl[j1 - 1];
+        lhc[t] = hc[j1 - 1];
+      }
+      __syncthreads();
+      // diagonal input of column j0: H(i-1, j0-1); column -1 is
+      // score_init at row 0, then i deletions
+      int hd = 0, hdc = 0;
+      float hdl = 0.0f;
+      if (t == 0) {
+        if (i > 0) {
+          hd = max(0, si - OPEN - (i - 1) * EXT);
+          hdl = __fadd_rn(log_open, __fmul_rn((float)(i - 1), log_ext));
+          hdc = i;
+        } else {
+          hd = si;
+        }
+      } else if (j1 > j0) {
+        hd = lh[t - 1];
+        hdl = lhl[t - 1];
+        hdc = lhc[t - 1];
+      }
+      long long agg = LLONG_MIN;
+      for (int j = j0; j < j1; ++j) {
+        const int pc = a.pat[prow + j];
+        const bool eq = tb == pc;
+        const int sc = (tbn || pc >= 4) ? -1 : (eq ? a.MATCH : -a.SUB);
+        const int mv = hd > 0 ? hd + sc : 0;
+        m[j] = mv;
+        ml[j] = __fadd_rn(hdl, eq ? 0.0f : a.logq[prow + j]);
+        mc[j] = hdc + (eq ? 0 : (1 << 20));
+        agg = max(agg, rows::key(max(mv - OPEN, 0) + j * EXT, j));
+        hd = h[j];
+        hdl = hl[j];
+        hdc = hc[j];
+      }
+      // F[j] extends the run started at the argmax of
+      // max(M - OPEN, 0)[l] + l * EXT over l < j, ties to the later start
+      long long carry = rows::exclusive_scan<true>(agg, LLONG_MIN, tot);
+      long long best = LLONG_MIN;
+      for (int j = j0; j < j1; ++j) {
+        const int mv = m[j], mcv = mc[j];
+        const float mlv = ml[j];
+        int f = kNegI, fct = 0;
+        float flp = a.neg_f;
+        if (j > 0) {
+          const int rj = rows::key_col(carry);
+          const int run_m1 = j - rj - 1;
+          f = rows::key_value(carry) - (j - 1) * EXT;
+          flp = __fadd_rn(__fadd_rn(ml[rj], log_open),
+                          __fmul_rn((float)run_m1, log_ext));
+          fct = mc[rj] + ((run_m1 + 1) << 10);
+        }
+        const int tv = max(mv - OPEN, 0);
+        carry = max(carry, rows::key(tv + j * EXT, j));
+        // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
+        const bool te = e[j] > mv;
+        int hh = te ? e[j] : mv;
+        float hhl = te ? el[j] : mlv;
+        int hhc = te ? ec[j] : mcv;
+        if (f > hh) {
+          hh = f;
+          hhl = flp;
+          hhc = fct;
+        }
+        // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
+        const int e_ext = e[j] - EXT;
+        const bool tx = e_ext > tv;
+        el[j] = tx ? __fadd_rn(el[j], log_ext) : __fadd_rn(mlv, log_open);
+        ec[j] = (tx ? ec[j] : mcv) + 1;
+        e[j] = tx ? e_ext : tv;
+        h[j] = hh;
+        hl[j] = hhl;
+        hc[j] = hhc;
+        best = max(best, rows::key(hh, j));  // local: ties to the larger column
+        if (j == pl - 1 && hh >= bg) {       // global: ties to the later row
+          bg = hh;
+          bg_row = i;
+          bg_lp = hhl;
+          bg_ct = hhc;
+        }
+      }
+      best = rows::all_reduce<true>(best, tot);
+      if (t == 0 && rows::key_value(best) > bl) {  // the earlier row keeps ties
+        bl = rows::key_value(best);
+        bl_row = i;
+        bl_col = rows::key_col(best);
+        bl_lp = hl[bl_col];
+        bl_ct = hc[bl_col];
+      }
+    }
+    int* oi = a.out_i + (long)row * 7;
+    if (j0 <= pl - 1 && pl - 1 < j1) {
+      oi[0] = bg;
+      oi[1] = bg_row;
+      oi[2] = bg_ct;
+      a.out_f[(long)row * 2] = bg_lp;
+    }
+    if (t == 0) {
+      oi[3] = bl;
+      oi[4] = bl_row;
+      oi[5] = bl_col;
+      oi[6] = bl_ct;
+      a.out_f[(long)row * 2 + 1] = bl_lp;
+    }
+    __syncthreads();  // the next row's start overwrites the planes and `next`
   }
 }
 
@@ -432,9 +681,13 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
                                     void* out_i, void* out_f, int N, int L,
                                     int T, int MATCH, int SUB, int OPEN,
                                     int EXT, float log_open, float log_ext,
-                                    float neg_f, void* stream) {
+                                    float neg_f, void* scratch, int blocks,
+                                    void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
-  if (L > 256) return (int)cudaErrorInvalidValue;  // C <= 8 at G = 32
+  // L > kMaxCols: `blocks` big-row blocks, each with 9 L words of scratch
+  if (L > kMaxCols &&
+      (scratch == nullptr || blocks <= 0 || L >= (1 << rows::kColBits)))
+    return (int)cudaErrorInvalidValue;
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -449,10 +702,15 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
                (float*)out_f, plan, slots, N, L, T, MATCH, SUB, OPEN, EXT,
                log_open, log_ext, neg_f};
   cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(plan, 0, 3 * sizeof(int), s);
+  cudaMemsetAsync(plan, 0, kHeader * sizeof(int), s);
   const long windows = ((long)N + kWindow - 1) / kWindow;
   plan_kernel<<<(unsigned)((windows + kPlanWarps - 1) / kPlanWarps),
                 kPlanWarps * 32, 0, s>>>(a);
+  if (L > kMaxCols)  // no row is big otherwise
+    pass_big_kernel<<<(unsigned)blocks, rows::kThreads, 0, s>>>(
+        a, (int*)scratch);
+  if (L > kXlCols)  // no row can take an xl pass otherwise
+    pass_xl_kernel<<<(unsigned)min(N, sms * kXlWarpsPerSM), 32, 0, s>>>(a);
   pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -28,10 +28,22 @@
 // after row plen (later rows cannot change the answer). Float adds and
 // multiplies are __fadd_rn/__fmul_rn in the plain version's order (and
 // -fmad=false), so the log-probabilities match it bit for bit.
+//
+// Rows of more than 512 columns (W + 1 > 512, reads past 483 bp at the
+// default -d) take fitting_dp_long_kernel: one block of rows::kThreads
+// threads per row (persistent blocks striding over the rows), each thread
+// a run of consecutive columns whose six state planes live in the
+// block's scratch in device memory, any width. Per pattern row: the
+// threads publish their last column's previous best (the next thread's
+// diagonal input), walk their columns, block-scan the (cost, column)
+// deletion keys (csrc/block_rows.cuh) and walk them again. A simple
+// kernel, not a fast one.
 
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "block_rows.cuh"
 
 namespace {
 
@@ -223,6 +235,152 @@ __global__ void __launch_bounds__(128) fitting_dp_kernel(
   }
 }
 
+// min(M, I) of column j (the answer and the deletion scan's source) and
+// its log-prob, from the state planes
+__device__ __forceinline__ int mi_of(const int* m, const int* ii,
+                                     const float* mlp, const float* ilp,
+                                     float neg, int j, float* lp) {
+  const int ab = min(m[j], ii[j]);
+  *lp = ab <= kPinf ? (m[j] <= ii[j] ? mlp[j] : ilp[j]) : neg;
+  return min(ab, kPinf);
+}
+
+__global__ void __launch_bounds__(rows::kThreads) fitting_dp_long_kernel(
+    const unsigned char* __restrict__ pat, const float* __restrict__ logq,
+    const int* __restrict__ plen, const unsigned char* __restrict__ text,
+    int* __restrict__ out_packed, float* __restrict__ out_lp,
+    int* __restrict__ out_end, int N, int L, int W, int anchored,
+    float log_open, float log_ext, float neg, int* __restrict__ scratch) {
+  __shared__ long long tot[rows::kWarps];
+  __shared__ int left_v[rows::kThreads];
+  __shared__ float left_lp[rows::kThreads];
+  const int t = threadIdx.x;
+  const int NC = W + 1;
+  const int K = (NC + rows::kThreads - 1) / rows::kThreads;
+  const int j0 = min(t * K, NC), j1 = min(j0 + K, NC);
+  int* m = scratch + (long)blockIdx.x * 6 * NC;
+  int* ii = m + NC;
+  int* d = ii + NC;
+  float* mlp = (float*)(d + NC);
+  float* ilp = mlp + NC;
+  float* dlp = ilp + NC;
+
+  for (long row = blockIdx.x; row < N; row += gridDim.x) {
+    for (int j = j0; j < j1; ++j) {
+      if (anchored) {
+        m[j] = j == 0 ? 0 : kPinf;
+        d[j] = j > 0 ? j * kStep : kPinf;
+        dlp[j] = j > 0 ? __fadd_rn(__fmul_rn((float)(j - 1), log_ext), log_open)
+                       : neg;
+      } else {
+        m[j] = 0;
+        d[j] = kPinf;
+        dlp[j] = neg;
+      }
+      ii[j] = kPinf;
+      mlp[j] = 0.0f;
+      ilp[j] = neg;
+    }
+    const int pl = plen[row];
+    const int nrows = min(pl, L);
+    const unsigned char* prow = pat + row * L;
+    const float* qrow = logq + row * L;
+    const unsigned char* trow = text + row * W;
+
+    for (int i = 0; i < nrows; ++i) {
+      const int pb = prow[i];
+      const float lq = qrow[i];
+      // best of (M, I, D) of the previous row; ties prefer M, then I
+      if (j1 > j0) {
+        const int j = j1 - 1;
+        const int ab = min(m[j], ii[j]);
+        const float ablp = m[j] <= ii[j] ? mlp[j] : ilp[j];
+        left_v[t] = min(ab, d[j]);
+        left_lp[t] = ab <= d[j] ? ablp : dlp[j];
+      }
+      __syncthreads();
+      int pv = 0;
+      float pvlp = 0.0f;
+      if (t > 0 && j1 > j0) {
+        pv = left_v[t - 1];
+        pvlp = left_lp[t - 1];
+      }
+      long long agg = LLONG_MAX;
+      for (int j = j0; j < j1; ++j) {
+        const int mj = m[j], ij = ii[j], dj = d[j];
+        const float mlj = mlp[j], ilj = ilp[j], dlj = dlp[j];
+        const int ab = min(mj, ij);
+        const float ablp = mj <= ij ? mlj : ilj;
+        const int pbest = min(ab, dj);
+        const float plp = ab <= dj ? ablp : dlj;
+        int mn;
+        float mnlp;
+        if (j == 0) {
+          mn = kPinf;
+          mnlp = neg;
+        } else {
+          const bool mis = (int)trow[j - 1] != pb;
+          mn = pv + (mis ? kEditUnit : 0);
+          mnlp = __fadd_rn(pvlp, mis ? lq : 0.0f);
+        }
+        // insertion: open from M, extend from I; a tie continues the run
+        const int i_open = mj + kStep;
+        const int i_ext = ij + kStep;
+        const bool te = i_ext <= i_open;
+        const int inew = te ? i_ext : i_open;
+        m[j] = mn;
+        mlp[j] = mnlp;
+        ii[j] = inew;
+        ilp[j] = te ? __fadd_rn(ilj, log_ext) : __fadd_rn(mlj, log_open);
+        agg = min(agg, rows::key(min(min(mn, inew), kPinf) - j * kStep, j));
+        pv = pbest;
+        pvlp = plp;
+      }
+      // deletion: D[j] extends the run started at the argmin of
+      // min(M, I)[l] - l * STEP over l < j, ties to the earlier column
+      long long carry = rows::exclusive_scan<false>(agg, LLONG_MAX, tot);
+      for (int j = j0; j < j1; ++j) {
+        float lp;
+        const int v = mi_of(m, ii, mlp, ilp, neg, j, &lp);
+        if (j == 0) {
+          d[j] = kPinf;
+          dlp[j] = neg;
+        } else {
+          const int rcol = rows::key_col(carry);
+          float rlp;
+          mi_of(m, ii, mlp, ilp, neg, rcol, &rlp);
+          d[j] = rows::key_value(carry) + j * kStep;
+          dlp[j] = __fadd_rn(__fadd_rn(rlp, log_open),
+                             __fmul_rn((float)(j - rcol - 1), log_ext));
+        }
+        carry = min(carry, rows::key(v - j * kStep, j));
+      }
+      __syncthreads();
+    }
+
+    // harvest at row plen: min over the columns of min(M, I), ties to
+    // the smallest column
+    int bv = kPinf, bcol = 0;
+    float blp = neg;
+    if (pl >= 1 && pl <= L) {  // the same for the whole block
+      long long best = LLONG_MAX;
+      float lp;
+      for (int j = j0; j < j1; ++j)
+        best = min(best, rows::key(mi_of(m, ii, mlp, ilp, neg, j, &lp), j));
+      best = rows::all_reduce<false>(best, tot);
+      bv = rows::key_value(best);
+      bcol = rows::key_col(best);
+      mi_of(m, ii, mlp, ilp, neg, bcol, &blp);
+    }
+    if (t == 0) {
+      out_packed[row] = bv;
+      out_lp[row] = blp;
+      out_end[row] = bcol;
+    }
+    __syncthreads();  // the next row's start overwrites the planes
+  }
+}
+
 template <int C>
 void launch(const void* pat, const void* logq, const void* plen,
             const void* text, void* out_packed, void* out_lp, void* out_end,
@@ -243,7 +401,8 @@ extern "C" int fitting_dp_launch(const void* pat, const void* logq,
                                  void* out_packed, void* out_lp,
                                  void* out_end, int N, int L, int W,
                                  int anchored, float log_open, float log_ext,
-                                 float neg, void* stream) {
+                                 float neg, void* scratch, int blocks,
+                                 void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
   const int need = (W + 1 + 31) / 32;  // columns per lane
   cudaStream_t s = (cudaStream_t)stream;
@@ -263,5 +422,14 @@ extern "C" int fitting_dp_launch(const void* pat, const void* logq,
   SNAP_DP_CASE(12)
   SNAP_DP_CASE(16)
 #undef SNAP_DP_CASE
-  return (int)cudaErrorInvalidValue;  // W + 1 > 512
+  // W + 1 > 512: one block a row, `blocks` of them, each with 6 (W + 1)
+  // words of `scratch`
+  if (scratch == nullptr || blocks <= 0 || W + 1 >= (1 << rows::kColBits))
+    return (int)cudaErrorInvalidValue;
+  fitting_dp_long_kernel<<<(unsigned)blocks, rows::kThreads, 0, s>>>(
+      (const unsigned char*)pat, (const float*)logq, (const int*)plen,
+      (const unsigned char*)text, (int*)out_packed, (float*)out_lp,
+      (int*)out_end, N, L, W, anchored, log_open, log_ext, neg,
+      (int*)scratch);
+  return (int)cudaGetLastError();
 }

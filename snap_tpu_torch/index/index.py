@@ -275,6 +275,15 @@ class GenomeIndex:
 
     @classmethod
     def load(cls, directory: str, device=None) -> "GenomeIndex":
+        import os
+
+        if not os.path.exists(os.path.join(directory, "index_meta.json")):
+            from .snap_format import is_snap_index_dir, load_snap_index
+
+            if is_snap_index_dir(directory):
+                # a reference snap-aligner index directory: import it
+                genome, arrays = load_snap_index(directory)
+                return cls(genome, arrays, device)
         genome = Genome.load(directory)
         arrays = load_index_arrays(directory)
         return cls(genome, arrays, device)

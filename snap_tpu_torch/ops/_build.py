@@ -66,7 +66,10 @@ def _lib_path(name: str) -> str:
 
 def _fresh(name: str) -> bool:
     so, src = _lib_path(name), _src_path(name)
-    return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src)
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+               if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(f) for f in [src, *headers])
+    return os.path.exists(so) and os.path.getmtime(so) >= newest
 
 
 def build_all(names=KERNELS) -> dict[str, float]:
@@ -81,7 +84,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
     procs = {}
     for n in todo:
         tmp = _lib_path(n) + f".tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _src_path(n)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, _src_path(n)]
         procs[n] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -151,6 +154,20 @@ def check(err: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+# blocks of a long-row kernel (csrc/block_rows.cuh) per SM: each holds
+# its own scratch planes, so this bounds their memory
+LONG_ROW_BLOCKS_PER_SM = 4
+
+
+def long_row_blocks(rows: int, device) -> int:
+    """Blocks of a long-row launch over `rows` rows: one per row up to
+    LONG_ROW_BLOCKS_PER_SM per SM, each with its own scratch planes."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(rows, sms * LONG_ROW_BLOCKS_PER_SM))
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

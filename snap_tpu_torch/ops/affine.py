@@ -36,6 +36,7 @@ from ..constants import (
     GAP_OPEN_PROB,
     SNP_PROB,
 )
+from .dp import col_bits
 
 NEG_I = -(1 << 29)
 NEG_F = float(np.float32(-1e30))
@@ -44,8 +45,6 @@ LOG_GAP_OPEN = float(np.float32(math.log(GAP_OPEN_PROB)))
 LOG_GAP_EXTEND = float(np.float32(math.log(GAP_EXTEND_PROB)))
 LOG_PERFECT = float(np.float32(math.log(1.0 - SNP_PROB)))
 
-_COL_BITS = 10
-_COL_MASK = (1 << _COL_BITS) - 1
 
 
 def _pack(mism, ins, dl):
@@ -99,6 +98,8 @@ def affine_extend_core_plain(
     n_text = max(0, min(T, int(tlen.max()) if N else 0))
     jc = torch.arange(L, dtype=i32, device=dev)[None, :]
     jc64 = jc.to(torch.int64)
+    cb = col_bits(L)
+    cmask = (1 << cb) - 1
     in_pat = jc < plen[:, None]
     pat = pattern.to(i32)
 
@@ -167,9 +168,9 @@ def affine_extend_core_plain(
         # the later run start
         t_ins = torch.clamp_min(m - OPEN, 0)
         adj = (t_ins + jc * EXT).to(torch.int64)
-        key = torch.cummax((adj << _COL_BITS) | jc64, dim=1).values
-        cum_v = (key >> _COL_BITS).to(i32)
-        cum_j = key & _COL_MASK
+        key = torch.cummax((adj << cb) | jc64, dim=1).values
+        cum_v = (key >> cb).to(i32)
+        cum_j = key & cmask
         src_lp = mlp + LOG_GAP_OPEN
         cum_lp = torch.gather(src_lp, 1, cum_j)
         cum_ct = torch.gather(mct, 1, cum_j)

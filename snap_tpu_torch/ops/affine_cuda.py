@@ -4,7 +4,9 @@
 ops.affine.affine_extend_core_plain (the recurrence) and
 `affine_extend_cuda` that of ops.affine.affine_extend_plain (the
 recurrence and the shared torch epilogue finish_extend). CUDA tensors
-launch the kernel; CPU tensors run the plain version.
+launch the kernel; CPU tensors run the plain version. Rows of more than
+MAX_L pattern columns run one block a row, with scratch planes that the
+wrapper allocates when the pattern is that wide.
 """
 
 from __future__ import annotations
@@ -25,20 +27,21 @@ from .affine import (
 )
 from ..constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
 
-MAX_L = 256  # 8 pattern columns per lane of a 32-lane row
+MAX_L = 512  # 16 pattern columns per lane of a 32-lane row; longer: big rows
 
 
 def plan_ints(N: int) -> int:
     """int32 words of the kernel's out_i: the N x 7 outputs, then at a
-    16-byte boundary the device-side pass plan (a 4-int header and up to
-    N records of 8 ints; csrc/affine.cu plan_offset)."""
-    return ((7 * N + 3) & ~3) + 4 + 8 * N
+    16-byte boundary the device-side pass plan (an 8-int header, up to
+    N records of 8 ints and N xl or big rows; csrc/affine.cu
+    plan_offset)."""
+    return ((7 * N + 3) & ~3) + 8 + 9 * N
 
 
 KERNEL = _build.Kernel(
     "affine", "affine_extend_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 )
 
 
@@ -70,8 +73,10 @@ def affine_extend_core_cuda(
             )
         if not t.is_contiguous():
             raise ValueError(f"affine_extend_core_cuda: {name} not contiguous")
+    blocks, scratch = 0, None
     if L > MAX_L:
-        raise ValueError(f"affine_extend_core_cuda: L = {L} > {MAX_L}")
+        blocks = _build.long_row_blocks(N, dev)
+        scratch = torch.empty((blocks, 9, L), dtype=torch.int32, device=dev)
     out_i = torch.empty((plan_ints(N),), dtype=torch.int32, device=dev)
     out_f = torch.empty((N, 2), dtype=torch.float32, device=dev)
     p = _build.ptr
@@ -79,6 +84,7 @@ def affine_extend_core_cuda(
         p(pattern), p(pat_logq), p(plen), p(text), p(tlen), p(score_init),
         p(out_i), p(out_f), N, L, T, match, sub, gap_open + gap_extend,
         gap_extend, LOG_GAP_OPEN, LOG_GAP_EXTEND, NEG_F,
+        None if scratch is None else p(scratch), blocks,
         _build.stream_ptr(dev),
     )
     _build.check(err, "affine_extend")

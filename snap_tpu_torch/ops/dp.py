@@ -41,10 +41,16 @@ LOG_GAP_EXTEND = float(np.float32(math.log(GAP_EXTEND_PROB)))
 LOG_PERFECT = float(np.float32(math.log(1.0 - SNP_PROB)))
 NEG = float(np.float32(-1e30))
 
-# packed (cost, column) scan keys: the column rides in the low bits so
-# one cummin gives the lexicographic (cost, earliest column) prefix min
-_COL_BITS = 10
-_COL_MASK = (1 << _COL_BITS) - 1
+# packed (cost, column) scan keys: the column rides in the low bits
+# (col_bits of them) so one cummin gives the lexicographic (cost,
+# earliest column) prefix min
+
+
+def col_bits(ncols: int) -> int:
+    """Low bits of a packed (value, column) scan key that hold a column
+    index below ncols: one cummin or cummax over the keys is then the
+    lexicographic prefix scan (at least 10 bits; more for long reads)."""
+    return max(10, (ncols - 1).bit_length())
 
 
 class DPResult(NamedTuple):
@@ -103,6 +109,8 @@ def fitting_edit_distance_core_plain(pattern, pat_logq, plen, text, anchored):
     neg_t = torch.full((N, W + 1), NEG, dtype=f32, device=dev)
     jc64 = jc.to(torch.int64)
     text_i = text.to(i32)
+    cb = col_bits(W + 1)
+    cmask = (1 << cb) - 1
 
     # rows past the longest pattern set no answer (is_last never holds)
     n_rows = min(L, int(plen.max())) if N else 0
@@ -134,9 +142,9 @@ def fitting_edit_distance_core_plain(pattern, pat_logq, plen, text, anchored):
             m_new, mlp_new, i_new, ilp_new, pinf_t, neg_t
         )
         adj = (mi - jc * STEP).to(torch.int64)
-        key = torch.cummin((adj << _COL_BITS) | jc64, dim=1).values
-        cum = (key >> _COL_BITS).to(i32)
-        cumcol = key & _COL_MASK
+        key = torch.cummin((adj << cb) | jc64, dim=1).values
+        cum = (key >> cb).to(i32)
+        cumcol = key & cmask
         cumlp = torch.gather(milp, 1, cumcol)
         # D[j] extends the run started at l = cumcol[j-1]:
         # cost mi[l] + (j-l)*STEP, log-prob open + (j-l-1)*extend
@@ -149,9 +157,9 @@ def fitting_edit_distance_core_plain(pattern, pat_logq, plen, text, anchored):
 
         # harvest at the last real pattern row: min over columns, ties
         # to the smallest end column
-        fkey = torch.min((mi.to(torch.int64) << _COL_BITS) | jc64, dim=1).values
-        best = (fkey >> _COL_BITS).to(i32)
-        bidx = fkey & _COL_MASK
+        fkey = torch.min((mi.to(torch.int64) << cb) | jc64, dim=1).values
+        best = (fkey >> cb).to(i32)
+        bidx = fkey & cmask
         blp = torch.gather(milp, 1, bidx[:, None])[:, 0]
         is_last = plen == (i + 1)
         ans_packed = torch.where(is_last, best, ans_packed)

@@ -1,7 +1,9 @@
 """ctypes wrapper of the CUDA gapless prescreen (csrc/gapless.cu).
 
 Same signature as ops.gapless.gapless_prescreen_plain. CUDA tensors
-launch the kernel; CPU tensors run the plain version.
+launch the kernel; CPU tensors run the plain version. The kernel takes
+reads of any length up to MAX_L positions (its log-error sums nest up
+to four levels of 32-term windows), so no read length leaves it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import torch
 
 from . import _build
 from .gapless import gapless_prescreen_plain
+
+MAX_L = 32 ** 5  # four window levels of ops/sums.py, then <= 32 sums
 
 KERNEL = _build.Kernel(
     "gapless", "gapless_prescreen_launch",
@@ -50,8 +54,8 @@ def gapless_prescreen_cuda(
             )
         if not t.is_contiguous():
             raise ValueError(f"gapless_prescreen_cuda: {name} not contiguous")
-    if L > 16 * PW or L > 1024:
-        raise ValueError("gapless_prescreen_cuda: L exceeds 16*PW or 1024")
+    if L > 16 * PW or L > MAX_L:
+        raise ValueError(f"gapless_prescreen_cuda: L = {L} exceeds 16*PW or {MAX_L}")
     dist = torch.empty((B, K), dtype=torch.int32, device=dev)
     logp = torch.empty((B, K), dtype=torch.float32, device=dev)
     p = _build.ptr

@@ -96,6 +96,30 @@ def simulate_reads(codes: np.ndarray, n: int, seed: int = 11):
     return out
 
 
+def simulate_long_reads(codes, n, read_len, seed):
+    """n reads of read_len bases from the two-contig genome: 1%
+    substitutions, a 1-3 bp deletion or insertion in every third read,
+    every other read reverse complemented. Names carry the start."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        s = int(rng.integers(0, codes.size - read_len - 10))
+        r = codes[s : s + read_len + 8].copy()
+        p = int(rng.integers(30, read_len - 30))
+        if i % 3 == 1:
+            r = np.delete(r, slice(p, p + int(rng.integers(1, 4))))
+        elif i % 3 == 2:
+            r = np.insert(r, p, rng.integers(0, 4, int(rng.integers(1, 4))))
+        r = r[:read_len]
+        m = rng.random(read_len) < 0.01
+        r = np.where(m, rng.integers(0, 4, read_len), r)
+        if i % 2:
+            r = (3 - r)[::-1]
+        q = rng.choice(np.frombuffer(b"#+5?II", np.uint8), read_len)
+        out.append((b"l%d_%d" % (i, s), DEC[r].tobytes(), q.tobytes()))
+    return out
+
+
 def write_inputs(directory: str, kind: str, n_reads: int) -> None:
     """g.fa (contigs c1, c2) and r.fq in `directory`."""
     codes = genome_codes(kind)
@@ -166,6 +190,39 @@ def test_cli_card_matches_cpu(tmp_path, monkeypatch):
         assert main(["index", "g.fa", "idx", "-s", "20"], device=dev) == 0
         assert main(["single", "idx", "r.fq", "-o", "out.sam", "-b", "64"], device=dev) == 0
         sams[dev] = (d / "out.sam").read_bytes().split(b"\n")
+    same_but_mapq(sams["cuda"], sams["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rl256", "om3"])
+def test_single_options_card_matches_cpu(tmp_path, monkeypatch, case):
+    """`single -rl 256` on 250 bp reads (the affine and DP kernels at
+    the long-read shapes) and `single -om 3 -omax 2` (the non-fast
+    path) on the card and on the CPU: the same SAM but for MAPQ +-1 in
+    at most 2 records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from snap_tpu_torch.cli import main
+
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        if case == "rl256":
+            write_inputs(str(d), "repeat25", 0)
+            reads = simulate_long_reads(genome_codes("repeat25"), 48, 250, 256)
+            with open(d / "r.fq", "wb") as f:
+                f.write(b"".join(b"@%s\n%s\n+\n%s\n" % r for r in reads))
+            extra = ["-rl", "256"]
+        else:
+            write_inputs(str(d), "repeat25", 128)
+            extra = ["-om", "3", "-omax", "2"]
+        monkeypatch.chdir(d)
+        assert main(["index", "g.fa", "idx", "-s", "20"], device=dev) == 0
+        assert main(["single", "idx", "r.fq", "-o", "out.sam", "-b", "64", *extra],
+                    device=dev) == 0
+        sams[dev] = (d / "out.sam").read_bytes().split(b"\n")
+    assert sum(1 for ln in sams["cpu"] if ln and not ln.startswith(b"@")) >= 48
     same_but_mapq(sams["cuda"], sams["cpu"])
 
 

@@ -260,7 +260,7 @@ def test_cli_multi_run_and_trace(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["paired", "idx", "a.fq", "b.fq", "-ishards", "2"], "A13"),
     (["single", "idx", "a.fq", "-ishards", "2"], "A13"),
-    (["single", "idx", "a.fq", "-t", "4"], "A11"),
+    (["roc", "a.sam"], "A12"),
     (["daemon"], "A12"),
     (["tofastq", "in.sam"], "A12"),
 ])

@@ -34,12 +34,18 @@ def _rows(rng, N, L, W):
 
 
 @pytest.mark.parametrize("anchored", [False, True])
-@pytest.mark.parametrize("W", [33, 156, 400])
-def test_dp_kernel_bit_exact(cuda, anchored, W):
+@pytest.mark.parametrize("L,W", [(100, 33), (100, 156), (100, 400), (100, 511),
+                                 (250, 278), (400, 428), (483, 511), (100, 512),
+                                 (484, 512), (1500, 1820), (2000, 4200)])
+def test_dp_kernel_bit_exact(cuda, anchored, L, W):
+    """Up to the one-warp kernel's limit W + 1 = 512, the long-read
+    shapes (pattern L, text window L + 28) of -rl 256, 400 and 483, and
+    past it the long-row kernel (a block a row): 1500 bp at -d 160 and a
+    window of more than 16 columns a thread."""
     from snap_tpu_torch.ops.dp import fitting_edit_distance_core_plain
     from snap_tpu_torch.ops.dp_cuda import fitting_edit_distance_core_cuda
 
-    args = [cuda(a) for a in _rows(np.random.default_rng(W), 300, 100, W)]
+    args = [cuda(a) for a in _rows(np.random.default_rng(W), 300, L, W)]
     got = fitting_edit_distance_core_cuda(*args, anchored)
     ref = fitting_edit_distance_core_plain(*args, anchored)
     for g, r in zip(got, ref):
@@ -82,14 +88,36 @@ def test_affine_kernel_bit_exact(cuda, L, many):
 
 
 @pytest.mark.parametrize("many", [False, True])
-def test_affine_kernel_ties(cuda, many):
+@pytest.mark.parametrize("L", [257, 400, 512, 513, 1500])
+def test_affine_kernel_long_rows(cuda, L, many):
+    """Patterns past 256 columns (the xl passes, 10-16 columns a lane)
+    and past 512 (the big rows, a block each): plen at each pass's edges
+    beside random rows, so big, xl, long and short rows share a launch;
+    `many` as in test_affine_kernel_bit_exact."""
+    rng = np.random.default_rng(L)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    N, T = (64 * sms + 75 if many else 303), L + 28
+    pat, logq, plen, txt = _rows(rng, N, L, T)
+    edges = [e for e in (0, 1, 255, 256, 257, 288, 289, 320, 321, 352, 353, 384,
+                         385, 416, 417, 448, 449, 480, 481, 511, 512, 513, 767,
+                         768, 769, 1500) if e <= L]
+    plen[: 2 * len(edges)] = np.repeat(edges, 2)
+    tlen = np.minimum(plen + 27, T - 1).astype(np.int32)
+    tlen[1 : 2 * len(edges) : 2] = T + 3
+    sinit = rng.integers(0, 600, N).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)])
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("L,T", [(80, 110), (400, 430), (512, 540), (1500, 1540)])
+def test_affine_kernel_ties(cuda, many, L, T):
     """Periodic pattern and text, N runs and low score_init: many equal
     scores, so the global (later row), local (earlier row, larger
-    column) and F (later run start) tie rules all decide; `many` as in
-    test_affine_kernel_bit_exact."""
+    column) and F (later run start) tie rules all decide, in rows of up
+    to 1500 columns; `many` as in test_affine_kernel_bit_exact."""
     rng = np.random.default_rng(7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    N, L, T = (64 * sms + 75 if many else 150), 80, 110
+    N = 64 * sms + 75 if many else 150
     pat = np.tile(np.array([0, 1], np.uint8), (N, L // 2))
     txt = np.tile(np.array([0, 1], np.uint8), (N, T // 2))
     txt[::3, 5:9] = 4
@@ -105,13 +133,15 @@ def test_affine_kernel_ties(cuda, many):
                       pens=((1, 4, 6, 1), (2, 6, 8, 2), (1, 1, 0, 1)))
 
 
-@pytest.mark.parametrize("L", [40, 100, 128])
+@pytest.mark.parametrize("L", [40, 100, 128, 1025, 1500, 20000])
 def test_gapless_kernel(cuda, L):
+    """Reads of one window level (L <= 1024) and of two or three (the
+    sums of ops/sums.py nest a level per 32-fold)."""
     from snap_tpu_torch.ops.gapless import gapless_prescreen_plain
     from snap_tpu_torch.ops.gapless_cuda import gapless_prescreen_cuda
 
     rng = np.random.default_rng(L)
-    B, K, PW = 200, 16, (L + 15) // 16
+    B, K, PW = (200 if L <= 1500 else 24), 16, (L + 15) // 16
     w = lambda *s: rng.integers(-(1 << 31), 1 << 31, s, dtype=np.int64).astype(np.int32)
     even = np.int32(0x55555555)
     arrays = (
