@@ -68,7 +68,10 @@ Phases, each printing one JSON line:
            dp.cu, gapless.cu) lies in DIR is also built from there and
            timed on the same launches in turns (baseline, kernel,
            kernel, baseline): how an earlier commit's kernel is put
-           beside the current one without committing it.
+           beside the current one without committing it (the DP and
+           affine sources of the block-scan design need block_rows.cuh
+           beside them). The first batch's launches at -rl 400 and
+           1500 bp in the long phase get the same comparison.
   long     long reads through `single` with the script's error model:
            16384 reads of 250 bp at -rl 256 and 8192 of 400 bp at -rl 400
            (the CLI's -b 1024), and 256 reads of 1500 bp with
@@ -77,7 +80,8 @@ Phases, each printing one JSON line:
            long-row kernels (a block a row). An untimed run of the first
            4 batches (for 1500 bp, the one run, whose first batch is
            replayed) keeps every launch, replayed bit for bit; the first
-           batch's launches at -rl 400 and at 1500 bp are timed as in the
+           batch's launches at -rl 400 and at 1500 bp (their rows, plen
+           and tlen spread printed) are timed as in the
            kernels phase. Fails unless every kernel launched, 98% of
            primary MAPQ >= 10 records lie within 30 bp, and on any launch
            that differs.
@@ -89,13 +93,18 @@ Phases, each printing one JSON line:
            reader finds the records sorted, with the SAM run's count and
            names, the spill gives the same record bytes; the host's
            seconds in the sort and write (OutputWriter.close) and spills.
-  threads  `single -t 4` on the sam phase's reads: the SAM of -t 1 (the
-           sam phase's -b 1024 run), the @PG line aside.
+  threads  `single -t 4` on the sam phase's reads: the range reader's
+           batches aligned as they come, as snap_tpu aligns them. Fails
+           unless the reader parsed every read, each has its primary
+           record, 98% of primary MAPQ >= 10 records lie within 30 bp
+           and every kernel launched; shows the records that differ
+           from the -t 1 run beside both runs' dp_overflow reads and
+           phase-C steps (a batch's make-up decides both).
   card_vs_cpu  the first reads of each long and options run (256; 16
-           at 1500 bp; 512), run on the card in their phase, again on the
-           CPU: at most 2 records differing, in MAPQ +-1 only. The CPU
-           runs come last, so that the index is loaded to host memory
-           once.
+           at 1500 bp; 512) and of the -t 4 run (3072), run on the card
+           in their phase, again on the CPU: at most 2 records
+           differing, in MAPQ +-1 only. The CPU runs come last, so that
+           the index is loaded to host memory once.
 Then a `seconds` line (each phase's wall seconds), one {"kernels": [...]}
 line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
 in the timed paired run; the sums over the launches of one 16384-read
@@ -394,25 +403,122 @@ def phase_device():
     return smi, name
 
 
+# The C launchers of the long-row kernels' block-scan design (one
+# 256-thread block a row, state planes in scratch, csrc/block_rows.cuh):
+# no row counter, and scratch of 6 (W + 1) (DP) or 9 L (affine) words
+# for each of up to 4 blocks per SM. --baseline calls a source of that
+# design this way; the port's wrappers call the row-wavefront launchers.
+BLOCK_SCAN_BLOCKS_PER_SM = 4
+
+
+def _block_scan_dp(lib: str):
+    import ctypes
+
+    import torch
+
+    from snap_tpu_torch.ops import _build, dp
+
+    fn = _build.Kernel(lib, "fitting_dp_launch",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+    def call(pattern, pat_logq, plen, text, anchored):
+        N, L = pattern.shape
+        W = text.shape[1]
+        dev = pattern.device
+        blocks, scratch = 0, None
+        if W + 1 > 512:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            blocks = max(1, min(N, sms * BLOCK_SCAN_BLOCKS_PER_SM))
+            scratch = torch.empty((blocks, 6, W + 1), dtype=torch.int32, device=dev)
+        packed = torch.empty((N,), dtype=torch.int32, device=dev)
+        lp = torch.empty((N,), dtype=torch.float32, device=dev)
+        end = torch.empty((N,), dtype=torch.int32, device=dev)
+        p = _build.ptr
+        _build.check(fn(
+            p(pattern), p(pat_logq), p(plen), p(text), p(packed), p(lp), p(end),
+            N, L, W, int(bool(anchored)), dp.LOG_GAP_OPEN, dp.LOG_GAP_EXTEND, dp.NEG,
+            None if scratch is None else p(scratch), blocks, _build.stream_ptr(dev),
+        ), f"{lib}")
+        return packed, lp, end
+
+    return call
+
+
+def _block_scan_affine(lib: str):
+    import torch
+
+    from snap_tpu_torch.constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
+    from snap_tpu_torch.ops import _build, affine, affine_cuda
+
+    fn = _build.Kernel(lib, "affine_extend_launch", affine_cuda.KERNEL.argtypes)
+
+    def call(pattern, pat_logq, plen, text, tlen, score_init, match=AG_MATCH,
+             sub=AG_MISMATCH, gap_open=AG_GAP_OPEN, gap_extend=AG_GAP_EXTEND):
+        N, L = pattern.shape
+        T = text.shape[1]
+        dev = pattern.device
+        blocks, scratch = 0, None
+        if L > 512:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            blocks = max(1, min(N, sms * BLOCK_SCAN_BLOCKS_PER_SM))
+            scratch = torch.empty((blocks, 9, L), dtype=torch.int32, device=dev)
+        out_i = torch.empty((affine_cuda.plan_ints(N),), dtype=torch.int32, device=dev)
+        out_f = torch.empty((N, 2), dtype=torch.float32, device=dev)
+        p = _build.ptr
+        _build.check(fn(
+            p(pattern), p(pat_logq), p(plen), p(text), p(tlen), p(score_init),
+            p(out_i), p(out_f), N, L, T, match, sub, gap_open + gap_extend, gap_extend,
+            affine.LOG_GAP_OPEN, affine.LOG_GAP_EXTEND, affine.NEG_F,
+            None if scratch is None else p(scratch), blocks, _build.stream_ptr(dev),
+        ), f"{lib}")
+        out_i = out_i[: 7 * N].view(N, 7)
+        return affine.ExtendBest(
+            out_i[:, 0], out_i[:, 1], out_f[:, 0], out_i[:, 2],
+            out_i[:, 3], out_i[:, 4], out_i[:, 5], out_f[:, 1], out_i[:, 6],
+        )
+
+    return call
+
+
 def baselines(directory: str | None) -> dict:
-    """kernel name -> the library name of its baseline source in
-    `directory` (registered with the build), for those that have one."""
+    """kernel name -> (the library name of its baseline source in
+    `directory`, registered with the build, and a function with the
+    kernel wrapper's signature that launches it), for those that have
+    one. A DP or affine source of the block-scan design (it includes
+    block_rows.cuh, which must lie beside it) goes through that design's
+    launch convention, any other through the port's wrapper."""
     from snap_tpu_torch.ops import _build
 
     out = {}
+    table = kernel_table()
     for name, (src, _) in (KERNEL_SOURCES.items() if directory else ()):
         path = os.path.join(directory, os.path.basename(src))
-        if os.path.exists(path):
-            lib = os.path.basename(src)[: -len(".cu")] + "_baseline"
-            _build.add_source(lib, path)
-            out[name] = lib
+        if not os.path.exists(path):
+            continue
+        lib = os.path.basename(src)[: -len(".cu")] + "_baseline"
+        _build.add_source(lib, path)
+        with open(path) as f:
+            block_scan = '#include "block_rows.cuh"' in f.read()
+        if block_scan and name == "fitting_edit_distance":
+            out[name] = (lib, _block_scan_dp(lib))
+        elif block_scan and name == "affine_extend":
+            out[name] = (lib, _block_scan_affine(lib))
+        else:
+            kern, launcher = table[name][1], table[name][4]
+
+            def call(*a, _kern=kern, _launcher=launcher, _lib=lib, **kw):
+                with _launcher.using(_lib):
+                    return _kern(*a, **kw)
+
+            out[name] = (lib, call)
     return out
 
 
 def phase_build(base: dict):
     from snap_tpu_torch.ops import _build
 
-    names = (*_build.KERNELS, *base.values())
+    names = (*_build.KERNELS, *(lib for lib, _ in base.values()))
     t0 = time.time()
     per = _build.build_all(names)
     secs = time.time() - t0
@@ -451,7 +557,7 @@ def time_launches(calls: dict, base: dict | None = None, phase: str = "kernels",
 
     base = base or {}
     summary = {}
-    for name, (_, kern, plain, _, launcher) in kernel_table().items():
+    for name, (_, kern, plain, _, _) in kernel_table().items():
         rows = []
         for args, kw in calls.get(name, ()):
             run = lambda: kern(*args, **kw)
@@ -466,14 +572,13 @@ def time_launches(calls: dict, base: dict | None = None, phase: str = "kernels",
                 fail(phase, f"{name}: " + "; ".join(bad))
             row = {"shape": shape_of(name, args), "max_abs_err": float_err(got, ref)}
             if name in base:
-                with launcher.using(base[name]):
-                    got_b = run()
-                    torch.cuda.synchronize()
-                    row["base_differs"] = differing(name, got_b, ref)
-                    t_b = [device_ms(run)]
+                run_b = lambda: base[name][1](*args, **kw)
+                got_b = run_b()
+                torch.cuda.synchronize()
+                row["base_differs"] = differing(name, got_b, ref)
+                t_b = [device_ms(run_b)]
                 t_k = [device_ms(run), device_ms(run)]
-                with launcher.using(base[name]):
-                    t_b.append(device_ms(run))
+                t_b.append(device_ms(run_b))
                 row["base_ms"] = float(np.mean(t_b))
                 row["ms"] = float(np.mean(t_k))
             else:
@@ -498,7 +603,7 @@ def launch_sums(rows: list) -> dict:
     bounds."""
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     bound = sum(r["bound_ms"] for r in rows)
-    return {
+    out = {
         "launches": len(rows),
         "ms": sum(r["ms"] for r in rows),
         "call_ms": sum(r["call_ms"] for r in rows),
@@ -507,6 +612,10 @@ def launch_sums(rows: list) -> dict:
         "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
         "max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0),
     }
+    if rows and all("base_ms" in r for r in rows):
+        out["base_ms"] = sum(r["base_ms"] for r in rows)
+        out["base_differs"] = [d for r in rows for d in r["base_differs"]]
+    return out
 
 
 # --------------------------------------------------------------- end to end
@@ -963,8 +1072,20 @@ def run_single(argv: list[str], device: str = "cuda", phase: str = "sam",
     owners = list(owners or [])
     owners += [(single.SingleEndAligner, n) for n in TIMED_METHODS]
     owners += [(pipeline, n) for n in TIMED_PIPELINE]
-    run, _, acc = run_cli(phase, argv, single.SingleEndAligner, "align_file",
-                          owners, device)
+    steps = {"phase_c": 0, "without_phase_c": 0}
+    step = pipeline.align_winners_device
+
+    def counted_step(*a, **kw):
+        steps["phase_c" if kw.get("phase_c") else "without_phase_c"] += 1
+        return step(*a, **kw)
+
+    pipeline.align_winners_device = counted_step
+    try:
+        run, _, acc = run_cli(phase, argv, single.SingleEndAligner, "align_file",
+                              owners, device)
+    finally:
+        pipeline.align_winners_device = step
+    run["steps"] = steps
     step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
     run.update({
         "step_s": step_s,
@@ -1105,7 +1226,8 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
                         "card_wall_s": recs["cuda"][1]},
     })
     return {"launches": runs[0]["launches"], "replays": replays, "fq": fq,
-            "sam": os.path.join(workdir, "out0.sam"), "reads": (reads, quals, names)}
+            "sam": os.path.join(workdir, "out0.sam"), "run": runs[0],
+            "reads": (reads, quals, names)}
 
 # ------------------------------------------------------- paired FASTQ -> SAM
 
@@ -1363,7 +1485,28 @@ def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
             "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]}
 
 
-def phase_long(seed: int, ctx: dict, workdir: str) -> tuple[dict, list]:
+def launch_spread(calls: dict) -> dict:
+    """Per kernel, each recorded launch's rows, widths, and the spread
+    (min, quartiles, max) of plen (and tlen) and the rows past 512
+    pattern columns (the long-row kernels' rows)."""
+    q = lambda x: np.percentile(x.cpu().numpy(), [0, 25, 50, 75, 100]).tolist()
+    out = {}
+    for name, launches in calls.items():
+        if name == "gapless_prescreen":
+            continue
+        rows = []
+        for args, _ in launches:
+            pat, plen, text = args[0], args[2], args[3]
+            r = {"N": pat.shape[0], "L": pat.shape[1], "W": text.shape[1], "plen": q(plen),
+                 "rows_past_512": int((plen > 512).sum())}
+            if name == "affine_extend":
+                r["tlen"] = q(args[4])
+            rows.append(r)
+        out[name] = rows
+    return out
+
+
+def phase_long(seed: int, ctx: dict, workdir: str, base: dict) -> tuple[dict, list]:
     """`single` at -rl 256 (250 bp reads) and -rl 400 (400 bp) with the
     CLI's -b 1024, and 1500 bp reads with test_long_reads.py's options:
     an untimed recording run of the first batches (for the 1500 bp
@@ -1406,10 +1549,11 @@ def phase_long(seed: int, ctx: dict, workdir: str) -> tuple[dict, list]:
         empty = [k for k in KERNEL_SOURCES if replays[k]["launches"] == 0]
         if empty:
             fail("long", f"{tag}: no launch of {empty} recorded in the first batches")
-        timed = {}
+        timed, spread = {}, {}
         if rl in (400, XL_LEN):
+            spread = launch_spread(first)
             timed = {k: launch_sums(v) for k, v in
-                     time_launches(first, phase="long", plain_reps=0).items() if v}
+                     time_launches(first, base, phase="long", plain_reps=0).items() if v}
         n_chk = XL_CHECK_READS if xl else LONG_CHECK_READS
         argv_of = lambda f, o, opts=opts, n_chk=n_chk: (
             ["single", idx_dir, f, "-o", o, *opts, "-b", str(n_chk)])
@@ -1421,6 +1565,7 @@ def phase_long(seed: int, ctx: dict, workdir: str) -> tuple[dict, list]:
                   "reads": n_rec, "wall_s": rec["wall_s"], "launches": rec["launches"],
                   "batches_replayed": XL_REPLAY_BATCHES if xl else LONG_RECORD_BATCHES},
               "replays": replays, "first_batch_launches": timed,
+              "first_batch_spread": spread,
               "run_s": time.time() - t_run})
     return runs, checks
 
@@ -1521,22 +1666,55 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
     return res
 
 
-def phase_threads(ctx: dict, sam: dict, workdir: str) -> dict:
-    """`single -t 4` on the sam phase's reads: the parse threads' reader
-    gives the SAM of the sam phase's -t 1 run, the @PG line aside."""
+THREADS = 4
+THREADS_CHECK_READS = 3072     # card-vs-CPU SAM of -t 4
+
+
+def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
+    """`single -t 4` on the sam phase's reads. The parse threads' range
+    batches are aligned as they come, as snap_tpu aligns them, so where
+    a batch-level path (the DP tier's overflow, the phase-C switch)
+    turns on a batch's make-up the records may differ from the sam
+    phase's -t 1 run: they are counted and shown beside both runs'
+    dp_overflow reads and phase-C steps. Fails unless the range reader
+    parsed every read, each has its primary record, 98% of MAPQ >= 10
+    records lie within 30 bp and every kernel launched. Returns the
+    card-vs-CPU check of its first reads still to run."""
+    idx_dir = ctx["idx_dir"]
     out = os.path.join(workdir, "t4.sam")
-    run = run_single(["single", ctx["idx_dir"], sam["fq"], "-o", out, "-t", "4"],
+    run = run_single(["single", idx_dir, sam["fq"], "-o", out, "-t", str(THREADS)],
                      phase="threads")
-    body = lambda p: [ln for ln in open(p, "rb").read().split(b"\n")
-                      if not ln.startswith(b"@PG")]
-    if body(out) != body(sam["sam"]):
-        fail("threads", "-t 4 wrote other SAM records than -t 1")
     if run["branches"].get("reader_range_split") != SAM_READS:
-        fail("threads", f"the -t 4 reader parsed {run['branches']}")
-    res = {"wall_s": run["wall_s"], "reads_per_s": SAM_READS / run["wall_s"],
-           "same_sam_as_t1": True, "branches": run["branches"]}
+        fail("threads", f"the -t {THREADS} reader parsed {run['branches']}")
+    check_run("threads", f"t{THREADS}", run, out, SAM_READS, list(KERNEL_SOURCES))
+
+    def by_name(path):
+        recs = {}
+        for ln in sam_records(path):
+            recs.setdefault(ln.split(b"\t", 1)[0], []).append(ln)
+        return recs
+
+    t4, t1 = by_name(out), by_name(sam["sam"])
+    differ = sorted(k for k in t1.keys() | t4.keys() if t1.get(k) != t4.get(k))
+    t1_run = sam["run"]
+    res = {
+        "wall_s": run["wall_s"], "reads_per_s": run["reads_per_s"],
+        "records_differ_from_t1": len(differ),
+        "differing_records": [{"t1": b"\n".join(t1.get(k, [])).decode(),
+                               f"t{THREADS}": b"\n".join(t4.get(k, [])).decode()}
+                              for k in differ[:5]],
+        "dp_overflow": {"t1": t1_run["branches"].get("dp_overflow", 0),
+                        f"t{THREADS}": run["branches"].get("dp_overflow", 0)},
+        "steps": {"t1": t1_run["steps"], f"t{THREADS}": run["steps"]},
+        "batches": {"t1": t1_run["branches"].get("batches"),
+                    f"t{THREADS}": run["branches"].get("batches")},
+        "branches": run["branches"], "sam": run["sam"],
+    }
     emit({"phase": "threads", "ok": True, "reads": SAM_READS, **res})
-    return res
+    reads, quals, names = sam["reads"]
+    argv_of = lambda f, o: ["single", idx_dir, f, "-o", o, "-t", str(THREADS)]
+    return [card_check("threads", f"t{THREADS}", argv_of, workdir, reads, quals, names,
+                       THREADS_CHECK_READS)]
 
 
 def phase_card_vs_cpu(checks: list) -> list:
@@ -1644,17 +1822,17 @@ def main() -> None:
         seconds["sam"], t0 = time.time() - t0, time.time()
         paired = phase_paired(args.seed, ctx, wd)
         seconds["paired"], t0 = time.time() - t0, time.time()
-        long, long_checks = phase_long(args.seed, ctx, wd)
+        long, long_checks = phase_long(args.seed, ctx, wd, base)
         seconds["long"], t0 = time.time() - t0, time.time()
         options, option_checks = phase_options(ctx, sam, wd)
         seconds["options"], t0 = time.time() - t0, time.time()
         phase_bam(ctx, sam, wd)
         seconds["bam"], t0 = time.time() - t0, time.time()
-        phase_threads(ctx, sam, wd)
+        thread_checks = phase_threads(ctx, sam, wd)
         seconds["threads"], t0 = time.time() - t0, time.time()
         ksum = phase_kernels(calls, base)
         seconds["kernels"], t0 = time.time() - t0, time.time()
-        phase_card_vs_cpu(long_checks + option_checks)
+        phase_card_vs_cpu(long_checks + option_checks + thread_checks)
         seconds["card_vs_cpu"] = time.time() - t0
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})

@@ -55,24 +55,34 @@
 //   row at the end: global at the lane holding column plen-1 (>= over
 //   rows), local by (larger value, earlier row, larger column).
 // - Rows of more than 512 columns (reads past 512 bp): a fourth kernel,
-//   one block of rows::kThreads threads per row (persistent blocks taking
-//   the plan's big rows), each thread a run of consecutive columns whose
-//   nine state planes live in the block's scratch in device memory, any
-//   width. Per text row: the threads publish their last column's H (the
-//   next thread's diagonal input), walk their columns for M, block-scan
-//   the F keys (csrc/block_rows.cuh, the plain version's cummax), walk
-//   again for F, H and E, and block-reduce the local readout. A simple
-//   kernel, not a fast one.
+//   pass_row_kernel, below.
+//
+// What held the first design of the big-row kernel back (one 256-thread
+// block a row, every thread on the same text row): (a) its nine state
+// planes lived in scratch in device memory, walked twice per text row;
+// (b) each text row was a block-wide step with five barriers (the F
+// block scan, a serial cross-warp walk, and a block all-reduce of the
+// local readout on every row); (c) at most 4 blocks per SM. It ran at
+// 68.6x its bound on the first 1500 bp batch (H100 80GB HBM3, 700.00 W).
+//
+// Its design now: the short passes' wavefront on a whole block. 256
+// threads a row, 8 pattern columns a thread in registers; thread t works
+// on text row s - t at step s, so H of the left column and the F carry
+// arrive from thread t - 1 by shuffle inside a warp and through a
+// two-slot shared ring across warps (one barrier a step); the readouts
+// stay per thread and are reduced once per row. Patterns wider than 2048
+// columns (20 kb reads) run strip by strip: the strip's last thread
+// writes H and the carry of every text row to the block's scratch (8
+// words a row, tlen rows), read back by the next strip's thread 0 one
+// step ahead. Persistent blocks, 2 per SM (<= 128 registers), take the
+// plan's big rows from its counter. ptxas (sm_90a): 128 registers, 6
+// bytes spilled (8 loaded back), 612 bytes of shared memory.
 // Float arithmetic is __fadd_rn/__fmul_rn in the plain version's order
 // (and -fmad=false); the F log-prob is fadd(rlp, fmul(j - rj - 1,
 // log_ext)) from the carried run start, so the log-probabilities match
 // the plain version bit for bit.
 
 #include <cuda_runtime.h>
-
-#include <climits>
-
-#include "block_rows.cuh"
 
 namespace {
 
@@ -85,6 +95,14 @@ constexpr int kXlWarpsPerSM = 8;     // resident at <= 255 registers
 constexpr int kMaxCols = 512;        // 32 lanes of 16 columns; longer: big
 constexpr int kXlCols = 256;         // longer rows take the xl passes
 constexpr int kHeader = 8;           // ints before the pass records
+// big rows (pass_row_kernel): threads a row, columns a thread, resident
+// blocks per SM (ops/affine_cuda.py sizes the scratch from the same
+// numbers)
+constexpr int kRowThreads = 256;
+constexpr int kRowC = 8;
+constexpr int kRowCols = kRowThreads * kRowC;
+constexpr int kRowBlocksPerSM = 2;
+constexpr int kMaxWidth = 1 << 24;  // columns (as float, exact below)
 
 // out_i holds the N x 7 outputs, then (at a 16-byte boundary) the plan:
 // an 8-int header (long passes planned, short passes planned, passes
@@ -509,167 +527,316 @@ __global__ void __launch_bounds__(32, kXlWarpsPerSM) pass_xl_kernel(const Args a
 }
 
 // Persistent blocks, each taking the next big row of the plan (more than
-// kMaxCols columns) until none is left; `scratch` holds 9 planes of L
-// words per block.
-__global__ void __launch_bounds__(rows::kThreads) pass_big_kernel(
-    const Args a, int* __restrict__ scratch) {
-  __shared__ long long tot[rows::kWarps];
-  __shared__ int lh[rows::kThreads], lhc[rows::kThreads];
-  __shared__ float lhl[rows::kThreads];
-  __shared__ int next;
-  const int t = threadIdx.x;
+// kMaxCols columns) until none is left: a skewed wavefront over the
+// block's threads. Thread t owns C consecutive pattern columns of the
+// current strip (P * C columns wide; a wider row runs strip by strip)
+// and works on text row s - t at step s. From thread t - 1, which
+// finished row i one step earlier, come H of its last column at row i
+// (the next row's diagonal input) and the F carry after it (value,
+// log-prob, counts, run start): inside a warp by shuffle, across warps
+// through a two-slot shared ring (one barrier a step), across strips
+// through `bnd`, where the strip's last thread writes them for every
+// text row and the next strip's thread 0 reads them one step ahead.
+// The readouts stay per thread and are reduced once a row.
+template <int P, int C>
+__global__ void __launch_bounds__(P, kRowBlocksPerSM) pass_row_kernel(
+    const Args a, int4* __restrict__ bnd) {
+  constexpr int NW = P / 32, SW = P * C;
+  __shared__ int xf[2][NW][7];
+  __shared__ int red[NW][5];
+  __shared__ int item;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int L = a.L, OPEN = a.OPEN, EXT = a.EXT;
   const float log_open = a.log_open, log_ext = a.log_ext;
-  int* h = scratch + (long)blockIdx.x * 9 * L;
-  int* hc = h + L;
-  int* e = hc + L;
-  int* ec = e + L;
-  int* m = ec + L;
-  int* mc = m + L;
-  float* hl = (float*)(mc + L);
-  float* el = hl + L;
-  float* ml = el + L;
   const int total = a.plan[5];
   const int* big = a.plan + kHeader + 8L * a.N + a.N - 1;  // big[-q]
+  int4* my_bnd = bnd + (long)blockIdx.x * a.T * 2;
 
   for (;;) {
-    if (t == 0) next = atomicAdd(&a.plan[6], 1);
+    if (t == 0) item = atomicAdd(&a.plan[6], 1);
     __syncthreads();
-    const int q = next;
-    if (q >= total) return;  // the same for the whole block
+    const int q = item;
+    __syncthreads();  // `item` is read before thread 0 takes the next
+    if (q >= total) return;
     const int row = big[-q];
     const int pl = clamp_len(a.plen[row], L), tl = clamp_len(a.tlen[row], a.T);
-    const int K = (pl + rows::kThreads - 1) / rows::kThreads;
-    const int j0 = min(t * K, pl), j1 = min(j0 + K, pl);
+    const int S = (pl + SW - 1) / SW;
     const int si = a.sinit[row];
     const long prow = (long)row * L;
     const unsigned char* trow = a.text + (long)row * a.T;
-    // row -1: leading pattern insertions charged from score_init
-    for (int j = j0; j < j1; ++j) {
-      h[j] = max(0, si - OPEN - j * EXT);
-      hl[j] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
-      hc[j] = (j + 1) << 10;
-      e[j] = 0;
-      el[j] = a.neg_f;
-      ec[j] = 0;
-    }
-    // the global readout stays with the thread of column plen-1, the
-    // local one with thread 0
+    // readouts of this thread's cells: global (column plen-1, ties to
+    // the later row) and local (larger value, earlier row, larger column)
+    bool owns_g = false;
     int bg = -1, bg_row = 0, bg_ct = 0;
     float bg_lp = a.neg_f;
     int bl = -1, bl_row = 0, bl_col = 0, bl_ct = 0;
     float bl_lp = a.neg_f;
 
-    for (int i = 0; i < tl; ++i) {
-      const int tb = trow[i];
-      const bool tbn = tb >= 4;
-      if (j1 > j0) {
-        lh[t] = h[j1 - 1];
-        lhl[t] = hl[j1 - 1];
-        lhc[t] = hc[j1 - 1];
+    for (int k = 0; k < S; ++k) {
+      const int base = k * SW + t * C;
+      const int nact = min(P, (pl - k * SW + C - 1) / C);
+      // columns past plen are dead: the local readout skips them
+      const int nlive = min(max(pl - base, 0), C);
+      int pc[C], h[C], hc[C], e[C], ec[C];
+      float lq[C], hl[C], el[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = base + c;
+        const bool live = j < pl;
+        pc[c] = live ? (int)a.pat[prow + j] : 0;
+        lq[c] = live ? a.logq[prow + j] : 0.0f;
+        // row -1: leading pattern insertions charged from score_init
+        h[c] = live ? max(0, si - OPEN - j * EXT) : kNegI;
+        hl[c] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
+        hc[c] = (j + 1) << 10;
+        e[c] = 0;
+        el[c] = a.neg_f;
+        ec[c] = 0;
       }
-      __syncthreads();
-      // diagonal input of column j0: H(i-1, j0-1); column -1 is
-      // score_init at row 0, then i deletions
-      int hd = 0, hdc = 0;
-      float hdl = 0.0f;
-      if (t == 0) {
-        if (i > 0) {
-          hd = max(0, si - OPEN - (i - 1) * EXT);
-          hdl = __fadd_rn(log_open, __fmul_rn((float)(i - 1), log_ext));
-          hdc = i;
-        } else {
-          hd = si;
-        }
-      } else if (j1 > j0) {
-        hd = lh[t - 1];
-        hdl = lhl[t - 1];
-        hdc = lhc[t - 1];
+      // diagonal input of column `base` at the current row: H(i-1,
+      // base-1); column -1 at row -1 is score_init itself
+      int dh, dc;
+      float dl;
+      if (base == 0) {
+        dh = si;
+        dl = 0.0f;
+        dc = 0;
+      } else {
+        dh = max(0, si - OPEN - (base - 1) * EXT);
+        dl = __fadd_rn(__fmul_rn((float)(base - 1), log_ext), log_open);
+        dc = base << 10;
       }
-      long long agg = LLONG_MIN;
-      for (int j = j0; j < j1; ++j) {
-        const int pc = a.pat[prow + j];
-        const bool eq = tb == pc;
-        const int sc = (tbn || pc >= 4) ? -1 : (eq ? a.MATCH : -a.SUB);
-        const int mv = hd > 0 ? hd + sc : 0;
-        m[j] = mv;
-        ml[j] = __fadd_rn(hdl, eq ? 0.0f : a.logq[prow + j]);
-        mc[j] = hdc + (eq ? 0 : (1 << 20));
-        agg = max(agg, rows::key(max(mv - OPEN, 0) + j * EXT, j));
-        hd = h[j];
-        hdl = hl[j];
-        hdc = hc[j];
+      // what this thread hands thread t + 1: H of its last column and the
+      // F carry after it, for the row it just finished
+      int oh = 0, ohc = 0, orv = kNegI, orct = 0;
+      float ohl = 0.0f, orlp = 0.0f, orj = 0.0f;
+      int4 nx0 = make_int4(0, 0, 0, 0), nx1 = nx0;
+      if (t == 0 && k > 0) {
+        nx0 = __ldcg(my_bnd);
+        nx1 = __ldcg(my_bnd + 1);
       }
-      // F[j] extends the run started at the argmax of
-      // max(M - OPEN, 0)[l] + l * EXT over l < j, ties to the later start
-      long long carry = rows::exclusive_scan<true>(agg, LLONG_MIN, tot);
-      long long best = LLONG_MIN;
-      for (int j = j0; j < j1; ++j) {
-        const int mv = m[j], mcv = mc[j];
-        const float mlv = ml[j];
-        int f = kNegI, fct = 0;
-        float flp = a.neg_f;
-        if (j > 0) {
-          const int rj = rows::key_col(carry);
-          const int run_m1 = j - rj - 1;
-          f = rows::key_value(carry) - (j - 1) * EXT;
-          flp = __fadd_rn(__fadd_rn(ml[rj], log_open),
-                          __fmul_rn((float)run_m1, log_ext));
-          fct = mc[rj] + ((run_m1 + 1) << 10);
+      const int cstar = pl - 1 - base;  // global column's slot
+      owns_g = owns_g || (cstar >= 0 && cstar < C);
+      int sl = -1, sl_row = 0, sl_col = 0, sl_ct = 0;
+      float sl_lp = a.neg_f;
+      const int baseE = base * EXT;
+      const int baseS = base << 10;
+      const float basef = (float)base;
+      int tb_nx = trow[0];
+      const int steps = tl + nact - 1;
+
+      for (int s = 0; s < steps; ++s) {
+        int ih = __shfl_up_sync(kFull, oh, 1);
+        float ihl = __shfl_up_sync(kFull, ohl, 1);
+        int ihc = __shfl_up_sync(kFull, ohc, 1);
+        int rv = __shfl_up_sync(kFull, orv, 1);
+        float rlp = __shfl_up_sync(kFull, orlp, 1);
+        int rct = __shfl_up_sync(kFull, orct, 1);
+        float rjf = __shfl_up_sync(kFull, orj, 1);
+        const int i = s - t;
+        if (lane == 0 && w > 0) {
+          const int* x = xf[(s - 1) & 1][w - 1];
+          ih = x[0];
+          ihl = __int_as_float(x[1]);
+          ihc = x[2];
+          rv = x[3];
+          rlp = __int_as_float(x[4]);
+          rct = x[5];
+          rjf = __int_as_float(x[6]);
+        } else if (t == 0 && k > 0) {
+          // the previous strip's last column at row i (= s)
+          ih = nx0.x;
+          ihl = __int_as_float(nx0.y);
+          ihc = nx0.z;
+          rv = nx0.w;
+          rlp = __int_as_float(nx1.x);
+          rct = nx1.y;
+          rjf = __int_as_float(nx1.z);
+          if (s + 1 < tl) {
+            nx0 = __ldcg(my_bnd + 2L * (s + 1));
+            nx1 = __ldcg(my_bnd + 2L * (s + 1) + 1);
+          }
+        } else if (t == 0) {
+          // column -1 at row i (the next row's h_init): i + 1 deletions
+          ih = max(0, si - OPEN - i * EXT);
+          ihl = __fadd_rn(log_open, __fmul_rn((float)i, log_ext));
+          ihc = i + 1;
+          rv = kNegI;  // no insertion run enters column 0
         }
-        const int tv = max(mv - OPEN, 0);
-        carry = max(carry, rows::key(tv + j * EXT, j));
-        // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
-        const bool te = e[j] > mv;
-        int hh = te ? e[j] : mv;
-        float hhl = te ? el[j] : mlv;
-        int hhc = te ? ec[j] : mcv;
-        if (f > hh) {
-          hh = f;
-          hhl = flp;
-          hhc = fct;
+        const int tb = tb_nx;
+        tb_nx = trow[min(max(i + 1, 0), tl - 1)];
+        if (t < nact && i >= 0 && i < tl) {
+          const bool tbn = tb >= 4;
+          // carry: rv = best max(M - OPEN, 0) + l * EXT over columns
+          // l < j, rlp its open log-prob, rct its counts less (l << 10),
+          // rj = l - base
+          float rj = __fsub_rn(rjf, basef);
+          int hd = dh, hdc = dc;
+          float hdl = dl;
+          int rk = -1, rkc = 0, gv = 0, gc = 0;
+          float rkl = 0.0f, gl = 0.0f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const bool eq = tb == pc[c];
+            // mismatch: -SUB, or -1 where the pattern or text has an N
+            int sc = eq ? a.MATCH : (pc[c] >= 4 ? -1 : -a.SUB);
+            sc = tbn ? -1 : sc;
+            const int m = hd > 0 ? hd + sc : 0;
+            const float mlp = __fadd_rn(hdl, eq ? 0.0f : lq[c]);
+            const int mct = hdc + (eq ? 0 : (1 << 20));
+            const int tt = max(m - OPEN, 0);
+            const int adj = tt + baseE + c * EXT;
+            const float slp = __fadd_rn(mlp, log_open);
+            // F at j = base + c from the run start carried over columns < j
+            const int f = rv - baseE - (c - 1) * EXT;
+            const float flp = __fadd_rn(
+                rlp, __fmul_rn(__fsub_rn((float)(c - 1), rj), log_ext));
+            const int fct = rct + baseS + (c << 10);
+            if (adj >= rv) {  // ties: the later run start
+              rv = adj;
+              rlp = slp;
+              rct = mct - baseS - (c << 10);
+              rj = (float)c;
+            }
+            // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
+            const bool te = e[c] > m;
+            int hh = te ? e[c] : m;
+            float hhl = te ? el[c] : mlp;
+            int hhc = te ? ec[c] : mct;
+            if (f > hh) {
+              hh = f;
+              hhl = flp;
+              hhc = fct;
+            }
+            // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
+            const int e_ext = e[c] - EXT;
+            const bool tx = e_ext > tt;
+            const float eln = tx ? __fadd_rn(el[c], log_ext) : slp;
+            ec[c] = (tx ? ec[c] : mct) + 1;
+            e[c] = tx ? e_ext : tt;
+            el[c] = eln;
+            // the old H is the next column's diagonal input
+            hd = h[c];
+            hdl = hl[c];
+            hdc = hc[c];
+            h[c] = hh;
+            hl[c] = hhl;
+            hc[c] = hhc;
+            // local: the row's best of this thread's columns, ties to the
+            // larger
+            const int key = hh * 16 + c;
+            if (c < nlive && key > rk) {
+              rk = key;
+              rkl = hhl;
+              rkc = hhc;
+            }
+            if (c == cstar) {
+              gv = hh;
+              gl = hhl;
+              gc = hhc;
+            }
+          }
+          oh = h[C - 1];
+          ohl = hl[C - 1];
+          ohc = hc[C - 1];
+          orv = rv;
+          orlp = rlp;
+          orct = rct;
+          orj = __fadd_rn(rj, basef);
+          dh = ih;
+          dl = ihl;
+          dc = ihc;
+          if (cstar >= 0 && cstar < C && gv >= bg) {  // ties: the later row
+            bg = gv;
+            bg_row = i;
+            bg_lp = gl;
+            bg_ct = gc;
+          }
+          if ((rk >> 4) > sl) {  // strictly greater: the earlier row keeps it
+            sl = rk >> 4;
+            sl_row = i;
+            sl_col = base + (rk & 15);
+            sl_lp = rkl;
+            sl_ct = rkc;
+          }
+          if (t == P - 1 && k + 1 < S) {
+            __stcg(my_bnd + 2L * i, make_int4(oh, __float_as_int(ohl), ohc, orv));
+            __stcg(my_bnd + 2L * i + 1,
+                   make_int4(__float_as_int(orlp), orct, __float_as_int(orj), 0));
+          }
         }
-        // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
-        const int e_ext = e[j] - EXT;
-        const bool tx = e_ext > tv;
-        el[j] = tx ? __fadd_rn(el[j], log_ext) : __fadd_rn(mlv, log_open);
-        ec[j] = (tx ? ec[j] : mcv) + 1;
-        e[j] = tx ? e_ext : tv;
-        h[j] = hh;
-        hl[j] = hhl;
-        hc[j] = hhc;
-        best = max(best, rows::key(hh, j));  // local: ties to the larger column
-        if (j == pl - 1 && hh >= bg) {       // global: ties to the later row
-          bg = hh;
-          bg_row = i;
-          bg_lp = hhl;
-          bg_ct = hhc;
+        if (lane == 31 && w + 1 < NW) {
+          int* x = xf[s & 1][w];
+          x[0] = oh;
+          x[1] = __float_as_int(ohl);
+          x[2] = ohc;
+          x[3] = orv;
+          x[4] = __float_as_int(orlp);
+          x[5] = orct;
+          x[6] = __float_as_int(orj);
         }
+        __syncthreads();
       }
-      best = rows::all_reduce<true>(best, tot);
-      if (t == 0 && rows::key_value(best) > bl) {  // the earlier row keeps ties
-        bl = rows::key_value(best);
-        bl_row = i;
-        bl_col = rows::key_col(best);
-        bl_lp = hl[bl_col];
-        bl_ct = hc[bl_col];
+      if (sl > bl || (sl == bl && (sl_row < bl_row ||
+                                   (sl_row == bl_row && sl_col > bl_col)))) {
+        bl = sl;
+        bl_row = sl_row;
+        bl_col = sl_col;
+        bl_lp = sl_lp;
+        bl_ct = sl_ct;
       }
     }
+
     int* oi = a.out_i + (long)row * 7;
-    if (j0 <= pl - 1 && pl - 1 < j1) {
+    if (owns_g) {
       oi[0] = bg;
       oi[1] = bg_row;
       oi[2] = bg_ct;
       a.out_f[(long)row * 2] = bg_lp;
     }
+    // local: larger value, then the earlier row, then the larger column
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int ov = __shfl_xor_sync(kFull, bl, off);
+      const int orow = __shfl_xor_sync(kFull, bl_row, off);
+      const int ocol = __shfl_xor_sync(kFull, bl_col, off);
+      const int oct = __shfl_xor_sync(kFull, bl_ct, off);
+      const float olp = __shfl_xor_sync(kFull, bl_lp, off);
+      if (ov > bl ||
+          (ov == bl && (orow < bl_row || (orow == bl_row && ocol > bl_col)))) {
+        bl = ov;
+        bl_row = orow;
+        bl_col = ocol;
+        bl_ct = oct;
+        bl_lp = olp;
+      }
+    }
+    if (lane == 0) {
+      red[w][0] = bl;
+      red[w][1] = bl_row;
+      red[w][2] = bl_col;
+      red[w][3] = bl_ct;
+      red[w][4] = __float_as_int(bl_lp);
+    }
+    __syncthreads();
     if (t == 0) {
+      for (int q2 = 1; q2 < NW; ++q2) {
+        const int* r = red[q2];
+        if (r[0] > bl ||
+            (r[0] == bl && (r[1] < bl_row || (r[1] == bl_row && r[2] > bl_col)))) {
+          bl = r[0];
+          bl_row = r[1];
+          bl_col = r[2];
+          bl_ct = r[3];
+          bl_lp = __int_as_float(r[4]);
+        }
+      }
       oi[3] = bl;
       oi[4] = bl_row;
       oi[5] = bl_col;
       oi[6] = bl_ct;
       a.out_f[(long)row * 2 + 1] = bl_lp;
     }
-    __syncthreads();  // the next row's start overwrites the planes and `next`
   }
 }
 
@@ -684,9 +851,11 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
                                     float neg_f, void* scratch, int blocks,
                                     void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
-  // L > kMaxCols: `blocks` big-row blocks, each with 9 L words of scratch
-  if (L > kMaxCols &&
-      (scratch == nullptr || blocks <= 0 || L >= (1 << rows::kColBits)))
+  // L > kMaxCols: `blocks` row blocks; with more than one strip a row,
+  // `scratch` holds 8 T words per block
+  const int strips = (L + kRowCols - 1) / kRowCols;
+  if (L > kMaxCols && (blocks <= 0 || L >= kMaxWidth ||
+                       (strips > 1 && scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
   static int sms = 0;
   if (sms == 0) {
@@ -707,8 +876,8 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
   plan_kernel<<<(unsigned)((windows + kPlanWarps - 1) / kPlanWarps),
                 kPlanWarps * 32, 0, s>>>(a);
   if (L > kMaxCols)  // no row is big otherwise
-    pass_big_kernel<<<(unsigned)blocks, rows::kThreads, 0, s>>>(
-        a, (int*)scratch);
+    pass_row_kernel<kRowThreads, kRowC><<<(unsigned)blocks, kRowThreads, 0, s>>>(
+        a, (int4*)scratch);
   if (L > kXlCols)  // no row can take an xl pass otherwise
     pass_xl_kernel<<<(unsigned)min(N, sms * kXlWarpsPerSM), 32, 0, s>>>(a);
   pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);

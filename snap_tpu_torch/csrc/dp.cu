@@ -30,20 +30,44 @@
 // -fmad=false), so the log-probabilities match it bit for bit.
 //
 // Rows of more than 512 columns (W + 1 > 512, reads past 483 bp at the
-// default -d) take fitting_dp_long_kernel: one block of rows::kThreads
-// threads per row (persistent blocks striding over the rows), each thread
-// a run of consecutive columns whose six state planes live in the
-// block's scratch in device memory, any width. Per pattern row: the
-// threads publish their last column's previous best (the next thread's
-// diagonal input), walk their columns, block-scan the (cost, column)
-// deletion keys (csrc/block_rows.cuh) and walk them again. A simple
-// kernel, not a fast one.
+// default -d) take fitting_dp_row_kernel.
+//
+// What held the first design of that kernel back (one 256-thread block a
+// row, every thread on the same pattern row): (a) its six state planes
+// lived in scratch in device memory, so a thread walked its 6-7 columns
+// through L1/L2 twice per pattern row; (b) each pattern row was a
+// block-wide step with four barriers, two of them in a block scan whose
+// cross-warp step walked the lower warps' totals one by one; (c) at most
+// 4 blocks per SM of mostly stalled warps. It ran at 78.7x its bound on
+// the first 1500 bp batch (H100 80GB HBM3, 700.00 W).
+//
+// This design:
+// - State in registers: 256 threads a row, 8 columns a thread (kRowC,
+//   a template parameter), all six planes and the text bases in
+//   registers; a row of up to 2048 columns is one strip.
+// - A skewed wavefront instead of block scans: thread t works on pattern
+//   row s - t at step s, so the diagonal input (the previous row's best
+//   of the left column) and the deletion carry (value, log-prob and
+//   column of the argmin over the columns to the left, ties to the
+//   earlier column) arrive from thread t - 1, which finished that row one
+//   step earlier: by __shfl_up_sync inside a warp, through a two-slot
+//   shared ring across warps, one barrier a step.
+// - The harvest at row plen - 1 stays per thread and is reduced once per
+//   row.
+// - Wider rows (the 20 kb reads: W + 1 = 22,002) run strip by strip: the
+//   strip's last thread writes its carry for every pattern row to the
+//   block's scratch (8 words a row, plen rows), and the next strip's
+//   thread 0 reads it one step ahead, in place.
+// - Persistent blocks, 2 per SM (<= 128 registers), take rows from a
+//   counter; rows without a harvest row (plen 0 or > L) only write it.
+//   ptxas (sm_90a): 118 registers, 0 bytes spilled, 420 bytes of shared
+//   memory.
+// A column's key needs no packing: (value, column) pairs travel as two
+// ints, for any width below 2^24 (kMaxWidth).
 
 #include <cuda_runtime.h>
 
 #include <climits>
-
-#include "block_rows.cuh"
 
 namespace {
 
@@ -51,6 +75,14 @@ constexpr int kEditUnit = 1 << 10;
 constexpr int kStep = kEditUnit + 1;  // one edit + one indel base
 constexpr int kPinf = 1 << 29;
 constexpr unsigned kFull = 0xffffffffu;
+// rows of more than 512 columns (fitting_dp_row_kernel): threads a row,
+// columns a thread, resident blocks per SM (ops/dp_cuda.py sizes the
+// scratch from the same numbers)
+constexpr int kRowThreads = 256;
+constexpr int kRowC = 8;
+constexpr int kRowCols = kRowThreads * kRowC;
+constexpr int kRowBlocksPerSM = 2;
+constexpr int kMaxWidth = 1 << 24;  // columns (as float, exact below)
 
 template <int C>
 __global__ void __launch_bounds__(128) fitting_dp_kernel(
@@ -235,149 +267,237 @@ __global__ void __launch_bounds__(128) fitting_dp_kernel(
   }
 }
 
-// min(M, I) of column j (the answer and the deletion scan's source) and
-// its log-prob, from the state planes
-__device__ __forceinline__ int mi_of(const int* m, const int* ii,
-                                     const float* mlp, const float* ilp,
-                                     float neg, int j, float* lp) {
-  const int ab = min(m[j], ii[j]);
-  *lp = ab <= kPinf ? (m[j] <= ii[j] ? mlp[j] : ilp[j]) : neg;
-  return min(ab, kPinf);
-}
-
-__global__ void __launch_bounds__(rows::kThreads) fitting_dp_long_kernel(
+// One row of W + 1 > kMaxCols columns on one block: a skewed wavefront.
+// Thread t owns kRowC consecutive columns of the current strip (the
+// strip is kRowThreads * kRowC columns wide; a wider row runs strip by
+// strip) and works on pattern row s - t at step s. What a column needs
+// from its left neighbour at row i arrives from thread t - 1, which
+// finished row i one step earlier: the previous row's best (M, I, D) of
+// its last column (the diagonal input) and the deletion carry (min over
+// its columns and those before of min(M, I) - l * STEP, with the
+// log-prob and column l of the argmin, ties to the earlier column).
+// Inside a warp by shuffle, across warps through a two-slot shared ring
+// (one barrier a step), across strips through `bnd`: the strip's last
+// thread writes the carry of every pattern row, and the next strip's
+// thread 0 reads it back one step ahead of its use.
+template <int P, int C>
+__global__ void __launch_bounds__(P, kRowBlocksPerSM) fitting_dp_row_kernel(
     const unsigned char* __restrict__ pat, const float* __restrict__ logq,
     const int* __restrict__ plen, const unsigned char* __restrict__ text,
     int* __restrict__ out_packed, float* __restrict__ out_lp,
     int* __restrict__ out_end, int N, int L, int W, int anchored,
-    float log_open, float log_ext, float neg, int* __restrict__ scratch) {
-  __shared__ long long tot[rows::kWarps];
-  __shared__ int left_v[rows::kThreads];
-  __shared__ float left_lp[rows::kThreads];
-  const int t = threadIdx.x;
+    float log_open, float log_ext, float neg, int* __restrict__ next_row,
+    int4* __restrict__ bnd) {
+  constexpr int NW = P / 32, SW = P * C;
+  __shared__ int xf[2][NW][5];
+  __shared__ int hv_s[NW], hcol_s[NW];
+  __shared__ float hlp_s[NW];
+  __shared__ int item;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int NC = W + 1;
-  const int K = (NC + rows::kThreads - 1) / rows::kThreads;
-  const int j0 = min(t * K, NC), j1 = min(j0 + K, NC);
-  int* m = scratch + (long)blockIdx.x * 6 * NC;
-  int* ii = m + NC;
-  int* d = ii + NC;
-  float* mlp = (float*)(d + NC);
-  float* ilp = mlp + NC;
-  float* dlp = ilp + NC;
+  const int S = (NC + SW - 1) / SW;
+  int4* my_bnd = bnd + (long)blockIdx.x * L * 2;
 
-  for (long row = blockIdx.x; row < N; row += gridDim.x) {
-    for (int j = j0; j < j1; ++j) {
-      if (anchored) {
-        m[j] = j == 0 ? 0 : kPinf;
-        d[j] = j > 0 ? j * kStep : kPinf;
-        dlp[j] = j > 0 ? __fadd_rn(__fmul_rn((float)(j - 1), log_ext), log_open)
-                       : neg;
-      } else {
-        m[j] = 0;
-        d[j] = kPinf;
-        dlp[j] = neg;
-      }
-      ii[j] = kPinf;
-      mlp[j] = 0.0f;
-      ilp[j] = neg;
-    }
+  for (;;) {
+    if (t == 0) item = atomicAdd(next_row, 1);
+    __syncthreads();
+    const int row = item;
+    __syncthreads();  // `item` is read before thread 0 takes the next
+    if (row >= N) return;
     const int pl = plen[row];
-    const int nrows = min(pl, L);
-    const unsigned char* prow = pat + row * L;
-    const float* qrow = logq + row * L;
-    const unsigned char* trow = text + row * W;
+    if (pl < 1 || pl > L) {  // no harvest row: the answer stays unset
+      if (t == 0) {
+        out_packed[row] = kPinf;
+        out_lp[row] = neg;
+        out_end[row] = 0;
+      }
+      continue;
+    }
+    const unsigned char* prow = pat + (long)row * L;
+    const float* qrow = logq + (long)row * L;
+    const unsigned char* trow = text + (long)row * W;
+    // the harvest at row plen - 1: min over the real columns of
+    // min(M, I), ties to the smallest column (strips run left to right)
+    int hv = INT_MAX, hcol = INT_MAX;
+    float hlp = neg;
 
-    for (int i = 0; i < nrows; ++i) {
-      const int pb = prow[i];
-      const float lq = qrow[i];
-      // best of (M, I, D) of the previous row; ties prefer M, then I
-      if (j1 > j0) {
-        const int j = j1 - 1;
-        const int ab = min(m[j], ii[j]);
-        const float ablp = m[j] <= ii[j] ? mlp[j] : ilp[j];
-        left_v[t] = min(ab, d[j]);
-        left_lp[t] = ab <= d[j] ? ablp : dlp[j];
-      }
-      __syncthreads();
-      int pv = 0;
-      float pvlp = 0.0f;
-      if (t > 0 && j1 > j0) {
-        pv = left_v[t - 1];
-        pvlp = left_lp[t - 1];
-      }
-      long long agg = LLONG_MAX;
-      for (int j = j0; j < j1; ++j) {
-        const int mj = m[j], ij = ii[j], dj = d[j];
-        const float mlj = mlp[j], ilj = ilp[j], dlj = dlp[j];
-        const int ab = min(mj, ij);
-        const float ablp = mj <= ij ? mlj : ilj;
-        const int pbest = min(ab, dj);
-        const float plp = ab <= dj ? ablp : dlj;
-        int mn;
-        float mnlp;
-        if (j == 0) {
-          mn = kPinf;
-          mnlp = neg;
+    for (int k = 0; k < S; ++k) {
+      const int base = k * SW + t * C;
+      const int nact = min(P, (NC - k * SW + C - 1) / C);
+      int m[C], ii[C], d[C], tx[C];
+      float mlp[C], ilp[C], dlp[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = base + c;
+        tx[c] = (j >= 1 && j <= W) ? (int)trow[j - 1] : 5;
+        if (anchored) {
+          m[c] = j == 0 ? 0 : kPinf;
+          d[c] = j > 0 ? j * kStep : kPinf;
+          dlp[c] = j > 0 ? __fadd_rn(__fmul_rn((float)(j - 1), log_ext), log_open)
+                         : neg;
         } else {
-          const bool mis = (int)trow[j - 1] != pb;
-          mn = pv + (mis ? kEditUnit : 0);
-          mnlp = __fadd_rn(pvlp, mis ? lq : 0.0f);
+          m[c] = 0;
+          d[c] = kPinf;
+          dlp[c] = neg;
         }
-        // insertion: open from M, extend from I; a tie continues the run
-        const int i_open = mj + kStep;
-        const int i_ext = ij + kStep;
-        const bool te = i_ext <= i_open;
-        const int inew = te ? i_ext : i_open;
-        m[j] = mn;
-        mlp[j] = mnlp;
-        ii[j] = inew;
-        ilp[j] = te ? __fadd_rn(ilj, log_ext) : __fadd_rn(mlj, log_open);
-        agg = min(agg, rows::key(min(min(mn, inew), kPinf) - j * kStep, j));
-        pv = pbest;
-        pvlp = plp;
+        ii[c] = kPinf;
+        mlp[c] = 0.0f;
+        ilp[c] = neg;
       }
-      // deletion: D[j] extends the run started at the argmin of
-      // min(M, I)[l] - l * STEP over l < j, ties to the earlier column
-      long long carry = rows::exclusive_scan<false>(agg, LLONG_MAX, tot);
-      for (int j = j0; j < j1; ++j) {
-        float lp;
-        const int v = mi_of(m, ii, mlp, ilp, neg, j, &lp);
-        if (j == 0) {
-          d[j] = kPinf;
-          dlp[j] = neg;
-        } else {
-          const int rcol = rows::key_col(carry);
-          float rlp;
-          mi_of(m, ii, mlp, ilp, neg, rcol, &rlp);
-          d[j] = rows::key_value(carry) + j * kStep;
-          dlp[j] = __fadd_rn(__fadd_rn(rlp, log_open),
-                             __fmul_rn((float)(j - rcol - 1), log_ext));
+      // what this thread hands thread t + 1 for the row it just finished
+      int o_pv = 0, o_rv = 0, o_rcol = 0;
+      float o_pvlp = 0.0f, o_rlp = 0.0f;
+      int4 nx0 = make_int4(0, 0, 0, 0), nx1 = nx0;
+      if (t == 0 && k > 0) {
+        nx0 = __ldcg(my_bnd);
+        nx1 = __ldcg(my_bnd + 1);
+      }
+      int pb_nx = prow[0];
+      float lq_nx = qrow[0];
+      const int steps = pl + nact - 1;
+      for (int s = 0; s < steps; ++s) {
+        int pv = __shfl_up_sync(kFull, o_pv, 1);
+        float pvlp = __shfl_up_sync(kFull, o_pvlp, 1);
+        int rv = __shfl_up_sync(kFull, o_rv, 1);
+        float rlp = __shfl_up_sync(kFull, o_rlp, 1);
+        int rcol = __shfl_up_sync(kFull, o_rcol, 1);
+        const int i = s - t;
+        if (lane == 0 && w > 0) {
+          const int* x = xf[(s - 1) & 1][w - 1];
+          pv = x[0];
+          pvlp = __int_as_float(x[1]);
+          rv = x[2];
+          rlp = __int_as_float(x[3]);
+          rcol = x[4];
+        } else if (t == 0 && k > 0) {
+          // the previous strip's last column at row i (= s)
+          pv = nx0.x;
+          pvlp = __int_as_float(nx0.y);
+          rv = nx0.z;
+          rlp = __int_as_float(nx0.w);
+          rcol = nx1.x;
+          if (s + 1 < pl) {
+            nx0 = __ldcg(my_bnd + 2L * (s + 1));
+            nx1 = __ldcg(my_bnd + 2L * (s + 1) + 1);
+          }
         }
-        carry = min(carry, rows::key(v - j * kStep, j));
+        const int pb = pb_nx;
+        const float lq = lq_nx;
+        const int inx = min(max(i + 1, 0), pl - 1);
+        pb_nx = prow[inx];
+        lq_nx = qrow[inx];
+        if (t < nact && i >= 0 && i < pl) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int j = base + c;
+            // best of (M, I, D) of the previous row; ties prefer M, then I
+            const int ab0 = min(m[c], ii[c]);
+            const float ab0lp = m[c] <= ii[c] ? mlp[c] : ilp[c];
+            const int pbest = min(ab0, d[c]);
+            const float plp = ab0 <= d[c] ? ab0lp : dlp[c];
+            int mn;
+            float mnlp;
+            if (j == 0) {
+              mn = kPinf;
+              mnlp = neg;
+            } else {
+              const bool mis = tx[c] != pb;
+              mn = pv + (mis ? kEditUnit : 0);
+              mnlp = __fadd_rn(pvlp, mis ? lq : 0.0f);
+            }
+            pv = pbest;
+            pvlp = plp;
+            // insertion: open from M, extend from I; a tie continues the run
+            const int i_open = m[c] + kStep;
+            const int i_ext = ii[c] + kStep;
+            const bool te = i_ext <= i_open;
+            const int inew = te ? i_ext : i_open;
+            const float ilpn =
+                te ? __fadd_rn(ilp[c], log_ext) : __fadd_rn(mlp[c], log_open);
+            m[c] = mn;
+            mlp[c] = mnlp;
+            ii[c] = inew;
+            ilp[c] = ilpn;
+            const int ab = min(mn, inew);
+            const float ablp = mn <= inew ? mnlp : ilpn;
+            const int mi = min(ab, kPinf);
+            const float milp = ab <= kPinf ? ablp : neg;
+            const int adj = mi - j * kStep;
+            // deletion: D[j] extends the run started at column rcol
+            if (j == 0) {
+              d[c] = kPinf;
+              dlp[c] = neg;
+              rv = adj;
+              rlp = milp;
+              rcol = j;
+            } else {
+              d[c] = rv + j * kStep;
+              dlp[c] = __fadd_rn(__fadd_rn(rlp, log_open),
+                                 __fmul_rn((float)(j - rcol - 1), log_ext));
+              if (adj < rv) {
+                rv = adj;
+                rlp = milp;
+                rcol = j;
+              }
+            }
+            if (i == pl - 1 && j < NC && mi < hv) {
+              hv = mi;
+              hlp = milp;
+              hcol = j;
+            }
+          }
+          o_pv = pv;
+          o_pvlp = pvlp;
+          o_rv = rv;
+          o_rlp = rlp;
+          o_rcol = rcol;
+          if (t == P - 1 && k + 1 < S) {
+            __stcg(my_bnd + 2L * i,
+                   make_int4(pv, __float_as_int(pvlp), rv, __float_as_int(rlp)));
+            __stcg(my_bnd + 2L * i + 1, make_int4(rcol, 0, 0, 0));
+          }
+        }
+        if (lane == 31 && w + 1 < NW) {
+          int* x = xf[s & 1][w];
+          x[0] = o_pv;
+          x[1] = __float_as_int(o_pvlp);
+          x[2] = o_rv;
+          x[3] = __float_as_int(o_rlp);
+          x[4] = o_rcol;
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
 
-    // harvest at row plen: min over the columns of min(M, I), ties to
-    // the smallest column
-    int bv = kPinf, bcol = 0;
-    float blp = neg;
-    if (pl >= 1 && pl <= L) {  // the same for the whole block
-      long long best = LLONG_MAX;
-      float lp;
-      for (int j = j0; j < j1; ++j)
-        best = min(best, rows::key(mi_of(m, ii, mlp, ilp, neg, j, &lp), j));
-      best = rows::all_reduce<false>(best, tot);
-      bv = rows::key_value(best);
-      bcol = rows::key_col(best);
-      mi_of(m, ii, mlp, ilp, neg, bcol, &blp);
+    // the block's min of the harvest, ties to the smallest column
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int ov = __shfl_xor_sync(kFull, hv, off);
+      const float olp = __shfl_xor_sync(kFull, hlp, off);
+      const int ocol = __shfl_xor_sync(kFull, hcol, off);
+      if (ov < hv || (ov == hv && ocol < hcol)) {
+        hv = ov;
+        hlp = olp;
+        hcol = ocol;
+      }
     }
+    if (lane == 0) {
+      hv_s[w] = hv;
+      hlp_s[w] = hlp;
+      hcol_s[w] = hcol;
+    }
+    __syncthreads();
     if (t == 0) {
-      out_packed[row] = bv;
-      out_lp[row] = blp;
-      out_end[row] = bcol;
+      for (int q = 1; q < NW; ++q)
+        if (hv_s[q] < hv || (hv_s[q] == hv && hcol_s[q] < hcol)) {
+          hv = hv_s[q];
+          hlp = hlp_s[q];
+          hcol = hcol_s[q];
+        }
+      out_packed[row] = hv;
+      out_lp[row] = hlp;
+      out_end[row] = hcol;
     }
-    __syncthreads();  // the next row's start overwrites the planes
   }
 }
 
@@ -401,8 +521,8 @@ extern "C" int fitting_dp_launch(const void* pat, const void* logq,
                                  void* out_packed, void* out_lp,
                                  void* out_end, int N, int L, int W,
                                  int anchored, float log_open, float log_ext,
-                                 float neg, void* scratch, int blocks,
-                                 void* stream) {
+                                 float neg, void* counter, void* scratch,
+                                 int blocks, void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
   const int need = (W + 1 + 31) / 32;  // columns per lane
   cudaStream_t s = (cudaStream_t)stream;
@@ -422,14 +542,19 @@ extern "C" int fitting_dp_launch(const void* pat, const void* logq,
   SNAP_DP_CASE(12)
   SNAP_DP_CASE(16)
 #undef SNAP_DP_CASE
-  // W + 1 > 512: one block a row, `blocks` of them, each with 6 (W + 1)
-  // words of `scratch`
-  if (scratch == nullptr || blocks <= 0 || W + 1 >= (1 << rows::kColBits))
+  // W + 1 > 512: one block a row, `blocks` of them taking rows from
+  // `counter` (one int, zeroed here); with more than one strip a row,
+  // `scratch` holds 8 L words per block
+  const int strips = (W + 1 + kRowCols - 1) / kRowCols;
+  if (counter == nullptr || blocks <= 0 || W + 1 >= kMaxWidth ||
+      (strips > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  fitting_dp_long_kernel<<<(unsigned)blocks, rows::kThreads, 0, s>>>(
-      (const unsigned char*)pat, (const float*)logq, (const int*)plen,
-      (const unsigned char*)text, (int*)out_packed, (float*)out_lp,
-      (int*)out_end, N, L, W, anchored, log_open, log_ext, neg,
-      (int*)scratch);
+  cudaMemsetAsync(counter, 0, sizeof(int), s);
+  fitting_dp_row_kernel<kRowThreads, kRowC>
+      <<<(unsigned)blocks, kRowThreads, 0, s>>>(
+          (const unsigned char*)pat, (const float*)logq, (const int*)plen,
+          (const unsigned char*)text, (int*)out_packed, (float*)out_lp,
+          (int*)out_end, N, L, W, anchored, log_open, log_ext, neg,
+          (int*)counter, (int4*)scratch);
   return (int)cudaGetLastError();
 }

@@ -156,14 +156,19 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-# blocks of a long-row kernel (csrc/block_rows.cuh) per SM: each holds
-# its own scratch planes, so this bounds their memory
-LONG_ROW_BLOCKS_PER_SM = 4
+# resident blocks per SM of the long-row kernels (csrc/dp.cu and
+# csrc/affine.cu kRowBlocksPerSM: 256 threads of at most 128 registers)
+LONG_ROW_BLOCKS_PER_SM = 2
+# columns of one strip of a long row (kRowCols: 256 threads of 8); a
+# wider row runs strip by strip, through 8 words of scratch per block
+# and recurrence row
+LONG_ROW_STRIP_COLS = 2048
 
 
 def long_row_blocks(rows: int, device) -> int:
-    """Blocks of a long-row launch over `rows` rows: one per row up to
-    LONG_ROW_BLOCKS_PER_SM per SM, each with its own scratch planes."""
+    """Blocks of a long-row launch over `rows` rows: one per row, up to
+    the LONG_ROW_BLOCKS_PER_SM that each SM holds at once; each takes
+    the next row when it is done."""
     import torch
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count

@@ -5,8 +5,10 @@ ops.affine.affine_extend_core_plain (the recurrence) and
 `affine_extend_cuda` that of ops.affine.affine_extend_plain (the
 recurrence and the shared torch epilogue finish_extend). CUDA tensors
 launch the kernel; CPU tensors run the plain version. Rows of more than
-MAX_L pattern columns run one block a row, with scratch planes that the
-wrapper allocates when the pattern is that wide.
+MAX_L pattern columns run one block a row; patterns wider than one strip
+(_build.LONG_ROW_STRIP_COLS) also pass each strip's right edge to the
+next through scratch that the wrapper allocates, 8 words per block and
+text row.
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def affine_extend_core_cuda(
     blocks, scratch = 0, None
     if L > MAX_L:
         blocks = _build.long_row_blocks(N, dev)
-        scratch = torch.empty((blocks, 9, L), dtype=torch.int32, device=dev)
+        if L > _build.LONG_ROW_STRIP_COLS:
+            scratch = torch.empty((blocks, T, 8), dtype=torch.int32, device=dev)
     out_i = torch.empty((plan_ints(N),), dtype=torch.int32, device=dev)
     out_f = torch.empty((N, 2), dtype=torch.float32, device=dev)
     p = _build.ptr

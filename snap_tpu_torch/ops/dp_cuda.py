@@ -2,8 +2,10 @@
 
 Same signature as ops.dp.fitting_edit_distance_plain. CUDA tensors
 launch the kernel; CPU tensors run the plain version. Rows of more than
-MAX_COLS DP columns (W + 1) run one block a row, with scratch planes
-that the wrapper allocates.
+MAX_COLS DP columns (W + 1) run one block a row (a row counter that the
+wrapper allocates); rows wider than one strip (_build.LONG_ROW_STRIP_COLS)
+also pass each strip's right edge to the next through scratch, 8 words
+per block and pattern row.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ MAX_COLS = 512  # W + 1 of the one-warp kernel: 16 columns per lane
 KERNEL = _build.Kernel(
     "dp", "fitting_dp_launch",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 )
 
 
@@ -56,10 +58,12 @@ def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
             )
         if not t.is_contiguous():
             raise ValueError(f"fitting_edit_distance_cuda: {name} not contiguous")
-    blocks, scratch = 0, None
+    blocks, counter, scratch = 0, None, None
     if W + 1 > MAX_COLS:
         blocks = _build.long_row_blocks(N, dev)
-        scratch = torch.empty((blocks, 6, W + 1), dtype=torch.int32, device=dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        if W + 1 > _build.LONG_ROW_STRIP_COLS:
+            scratch = torch.empty((blocks, L, 8), dtype=torch.int32, device=dev)
     packed = torch.empty((N,), dtype=torch.int32, device=dev)
     lp = torch.empty((N,), dtype=torch.float32, device=dev)
     end = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -67,6 +71,7 @@ def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
     err = KERNEL(
         p(pattern), p(pat_logq), p(plen), p(text), p(packed), p(lp), p(end),
         N, L, W, int(bool(anchored)), LOG_GAP_OPEN, LOG_GAP_EXTEND, NEG,
+        None if counter is None else p(counter),
         None if scratch is None else p(scratch), blocks,
         _build.stream_ptr(dev),
     )

@@ -1,9 +1,9 @@
 """The port's CLI on the card against the port's CLI on the CPU.
 
 Also holds the test inputs of tests/test_torch_single.py (a genome of two
-contigs written as FASTA, reads of every kind written as FASTQ), here
-because this file imports no JAX, and a pair simulator for the `paired`
-twin. The test is marked `cuda` and skips
+contigs written as FASTA, reads of every kind written as FASTQ) and of
+tests/test_torch_long_reads_1500.py, here because this file imports no
+JAX, and a pair simulator for the `paired` twin. The test is marked `cuda` and skips
 where torch sees no CUDA device. On a machine with a card (and no JAX,
 so without tests/conftest.py):
 
@@ -11,6 +11,7 @@ so without tests/conftest.py):
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -247,3 +248,91 @@ def test_paired_card_matches_cpu(tmp_path, monkeypatch):
         sams[dev] = (d / "out.sam").read_bytes().split(b"\n")
     assert sum(1 for ln in sams["cpu"] if ln and not ln.startswith(b"@")) >= 2 * 192
     same_but_mapq(sams["cuda"], sams["cpu"])
+
+
+def write_long_inputs(directory, glen, read_len, seed, starts, kinds, width=70):
+    """g.fa (one random contig chr1), and one read per start, kind
+    'clean', 'snp' (2% substitutions) or a deletion of k bases at the
+    read's midpoint ('del<k>'): test_long_reads.py's inputs."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=glen).astype(np.uint8)
+    seq = DEC[codes].tobytes()
+    with open(directory / "g.fa", "wb") as f:
+        f.write(b">chr1\n")
+        for i in range(0, glen, width):
+            f.write(seq[i : i + width] + b"\n")
+    reads = []
+    for s, kind in zip(starts, kinds):
+        if kind == "snp":
+            r = codes[s : s + read_len].copy()
+            snp = rng.choice(read_len, size=read_len // 50, replace=False)
+            r[snp] = (r[snp] + 1) % 4
+        elif kind.startswith("del"):
+            k, half = int(kind[3:]), read_len // 2
+            r = np.concatenate([codes[s : s + half], codes[s + half + k : s + k + read_len]])
+        else:
+            r = codes[s : s + read_len]
+        reads.append(r)
+    return reads
+
+
+def write_fq(path, reads, prefix):
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, DEC[r].tobytes(), b"I" * len(r)))
+
+
+def parse_sam_bytes(sam: bytes) -> dict:
+    recs = {}
+    for ln in sam.decode().splitlines():
+        if ln.startswith("@"):
+            continue
+        t = ln.split("\t")
+        recs[t[0]] = (int(t[1]), int(t[3]), t[5])
+    return recs
+
+
+@pytest.mark.cuda
+def test_snapxl_card_matches_cpu(tmp_path, monkeypatch):
+    """tests/test_torch_long_reads_1500.py's snapxl case (single -rl
+    20000 -d 1000 -i 1100 -dp 0.15 -mrl 100, two 20 kb reads, -b 2) on
+    the card and on the CPU: the DP and affine long-row kernels across
+    their strips. The same SAM bytes; on both devices the two-phase merge
+    finds each read's best candidate at its locus, 400 edits for the
+    2%-SNP read and 200 (one 200-base deletion) for the other. Both
+    records stay unmapped, on both devices, as in snap_tpu: its merge
+    keeps distances up to MAX_K - 1 = 126 (two_phase_merge's mk_eff).
+    Prints each device's wall time of the `single` command (`-rP`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from snap_tpu_torch.align import pipeline
+    from snap_tpu_torch.cli import main
+    from snap_tpu_torch.constants import DEFAULT_CONTIG_PADDING
+
+    read_len, starts = 20_000, [10_000, 60_000]
+    merge = pipeline.two_phase_merge
+    sams, best = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        reads = write_long_inputs(d, 120_000, read_len, 11, starts, ["snp", "del200"])
+        write_fq(d / "r.fq", reads, b"xl")
+        merged = []
+        monkeypatch.setattr(pipeline, "two_phase_merge",
+                            lambda *a, **kw: merged.append(merge(*a, **kw)) or merged[-1])
+        monkeypatch.chdir(d)
+        assert main(["index", "g.fa", "idx", "-s", "24"], device=dev) == 0
+        t0 = time.perf_counter()
+        assert main(["single", "idx", "r.fq", "-o", "out.sam", "-b", "2", "-rl",
+                     str(read_len), "-d", "1000", "-i", "1100", "-dp", "0.15",
+                     "-mrl", "100"], device=dev) == 0
+        print(f"snapxl single on {dev}: {time.perf_counter() - t0:.2f} s wall")
+        sams[dev] = (d / "out.sam").read_bytes()
+        m = merged[0]
+        k = np.argmin(m["dist"], axis=1)
+        r = np.arange(2)
+        best[dev] = [m[f][r, k].tolist() for f in ("cand_loc", "dist", "indels")]
+    assert sams["cuda"] == sams["cpu"]
+    assert best["cuda"] == best["cpu"]
+    assert best["cuda"] == [[DEFAULT_CONTIG_PADDING + s for s in starts], [400, 200], [0, 200]]
+    assert sorted(parse_sam_bytes(sams["cuda"])) == ["xl0", "xl1"]

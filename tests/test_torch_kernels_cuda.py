@@ -36,16 +36,22 @@ def _rows(rng, N, L, W):
 @pytest.mark.parametrize("anchored", [False, True])
 @pytest.mark.parametrize("L,W", [(100, 33), (100, 156), (100, 400), (100, 511),
                                  (250, 278), (400, 428), (483, 511), (100, 512),
-                                 (484, 512), (1500, 1820), (2000, 4200)])
+                                 (484, 512), (1500, 1820), (2000, 4200),
+                                 (600, 2046), (600, 2047), (600, 2048), (300, 4095),
+                                 (300, 4096), (200, 6200)])
 def test_dp_kernel_bit_exact(cuda, anchored, L, W):
     """Up to the one-warp kernel's limit W + 1 = 512, the long-read
     shapes (pattern L, text window L + 28) of -rl 256, 400 and 483, and
-    past it the long-row kernel (a block a row): 1500 bp at -d 160 and a
-    window of more than 16 columns a thread."""
+    past it the long-row kernel (a block a row): 1500 bp at -d 160, W + 1
+    at a 2048-column strip's edge (2047-2049, 4096, 4097) and over three
+    and four strips; plen 0, 1, 2, 7-9, L - 1, L and L + 1 (no harvest
+    row) among random rows."""
     from snap_tpu_torch.ops.dp import fitting_edit_distance_core_plain
     from snap_tpu_torch.ops.dp_cuda import fitting_edit_distance_core_cuda
 
-    args = [cuda(a) for a in _rows(np.random.default_rng(W), 300, L, W)]
+    pat, logq, plen, txt = _rows(np.random.default_rng(W), 300, L, W)
+    plen[:9] = [0, 1, 2, 7, 8, 9, L - 1, L, L + 1]
+    args = [cuda(a) for a in (pat, logq, plen, txt)]
     got = fitting_edit_distance_core_cuda(*args, anchored)
     ref = fitting_edit_distance_core_plain(*args, anchored)
     for g, r in zip(got, ref):
@@ -131,6 +137,95 @@ def test_affine_kernel_ties(cuda, many, L, T):
     sinit[::2] = 0
     _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)],
                       pens=((1, 4, 6, 1), (2, 6, 8, 2), (1, 1, 0, 1)))
+
+
+def _dp_bit_exact(args, anchors=(False, True)):
+    from snap_tpu_torch.ops.dp import fitting_edit_distance_core_plain
+    from snap_tpu_torch.ops.dp_cuda import fitting_edit_distance_core_cuda
+
+    for anchored in anchors:
+        got = fitting_edit_distance_core_cuda(*args, anchored)
+        ref = fitting_edit_distance_core_plain(*args, anchored)
+        torch.cuda.synchronize()
+        for g, r, field in zip(got, ref, ("packed", "log_prob", "end")):
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32)), (anchored, field)
+
+
+# The long-row kernels (csrc/dp.cu, csrc/affine.cu): 256 threads of 8
+# columns a row, rows wider than 2048 columns strip by strip.
+
+
+def test_dp_long_row_snapxl(cuda):
+    """The snapxl shape: -rl 20000 -d 1000 gives W = L + 2 * M3 + 1, so
+    W + 1 = 22,002 columns (11 strips) over 20,000 pattern rows."""
+    rng = np.random.default_rng(20000)
+    L, W = 20000, 22001
+    pat, logq, plen, txt = _rows(rng, 4, L, W)
+    plen[:] = [L, L - 1, 2049, 1]
+    # the read near the window's middle, as the aligner places it
+    txt[:, 1000 : 1000 + L] = np.where(rng.random((4, L)) < 0.97, pat, txt[:, 1000 : 1000 + L])
+    _dp_bit_exact([cuda(a) for a in (pat, logq, plen, txt)])
+
+
+@pytest.mark.parametrize("W", [1820, 4200])
+def test_dp_long_row_ties(cuda, W):
+    """Periodic pattern and text with N runs: many equal costs, so the
+    deletion carry (earlier run start) and the answer (smallest end
+    column) tie rules decide, in one strip and in three."""
+    rng = np.random.default_rng(3)
+    N, L = 60, 1500
+    pat = np.tile(np.array([0, 1], np.uint8), (N, L // 2))
+    txt = np.tile(np.array([0, 1], np.uint8), (N, W // 2))
+    txt[::3, 5:9] = 4
+    pat[::4, 10:12] = 4
+    txt[1::5, :300] = 4
+    txt[2::7, 20:] = np.tile(np.array([0, 0, 1, 1], np.uint8), (1, (W - 20) // 4 + 1))[:, : W - 20]
+    logq = np.full((N, L), np.float32(np.log(0.01)))
+    plen = rng.integers(0, L + 2, N).astype(np.int32)
+    _dp_bit_exact([cuda(a) for a in (pat, logq, plen, txt)])
+
+
+def test_dp_long_row_many(cuda):
+    """More rows than the resident long-row blocks (2 per SM): blocks
+    take the next row when done."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(11)
+    pat, logq, plen, txt = _rows(rng, 6 * sms + 7, 300, 700)
+    _dp_bit_exact([cuda(a) for a in (pat, logq, plen, txt)], anchors=(False,))
+
+
+@pytest.mark.parametrize("L", [2047, 2048, 2049, 4200])
+def test_affine_kernel_strip_edges(cuda, L):
+    """Big rows at a strip's edge and across strips: plen at 513, at a
+    thread's 8-column tile edges, at 2047-2049, 4095-4097 and L; tlen 1,
+    2, T and past T."""
+    rng = np.random.default_rng(L + 1)
+    T = L + 28
+    edges = [e for e in (513, 519, 520, 521, 2047, 2048, 2049, 4095, 4096, 4097, L)
+             if e <= L]
+    N = 4 * len(edges) + 8
+    pat, logq, plen, txt = _rows(rng, N, L, T)
+    plen[: 4 * len(edges)] = np.repeat(edges, 4)
+    tlen = np.minimum(plen + 27, T).astype(np.int32)
+    tlen[0 : 4 * len(edges) : 4] = 1
+    tlen[1 : 4 * len(edges) : 4] = 2
+    tlen[2 : 4 * len(edges) : 4] = T + 5
+    sinit = rng.integers(0, 600, N).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)])
+
+
+def test_affine_kernel_20kb(cuda):
+    """Rows of up to 20,000 pattern columns (10 strips), the snapxl
+    reads' length, beside shorter big rows."""
+    rng = np.random.default_rng(20000)
+    L = 20000
+    T = L + 28
+    pat, logq, plen, txt = _rows(rng, 5, L, T)
+    plen[:] = [L, L - 1, 6145, 2049, 513]
+    tlen = np.array([T, L - 40, 6200, T, 600], np.int32)
+    sinit = rng.integers(100, 600, 5).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)],
+                      pens=((1, 4, 6, 1),))
 
 
 @pytest.mark.parametrize("L", [40, 100, 128, 1025, 1500, 20000])

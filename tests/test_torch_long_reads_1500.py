@@ -4,53 +4,21 @@
   packages: the same SAM bytes, and the reads where the original test
   wants them. On the card its reads take all three kernels at
   L = 1500: the DP and affine rows past 512 columns a block a row.
-- The snapxl-style 20 kb run, marked slow as the original is.
+- The snapxl-style 20 kb run, marked slow as the original is (on the
+  card against the CPU: tests/test_torch_cli_cuda.py).
 
 Both packages run as tests/test_torch_single.py runs them (see
 tests/test_torch_long_reads.py).
 """
 
-import numpy as np
 import pytest
 import torch
 
-from test_torch_cli_cuda import DEC
+from test_torch_cli_cuda import parse_sam_bytes, write_fq, write_long_inputs
 from test_torch_long_reads import assert_same_sam, run_twins
 from test_torch_pipeline import same_logq  # noqa: F401
 
 torch.set_num_threads(1)
-
-
-def write_long_inputs(directory, glen, read_len, seed, starts, kinds, width=70):
-    """g.fa (one random contig chr1), and one read per start, kind
-    'clean', 'snp' (2% substitutions) or a deletion of k bases at the
-    read's midpoint ('del<k>'): test_long_reads.py's inputs."""
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 4, size=glen).astype(np.uint8)
-    seq = DEC[codes].tobytes()
-    with open(directory / "g.fa", "wb") as f:
-        f.write(b">chr1\n")
-        for i in range(0, glen, width):
-            f.write(seq[i : i + width] + b"\n")
-    reads = []
-    for s, kind in zip(starts, kinds):
-        if kind == "snp":
-            r = codes[s : s + read_len].copy()
-            snp = rng.choice(read_len, size=read_len // 50, replace=False)
-            r[snp] = (r[snp] + 1) % 4
-        elif kind.startswith("del"):
-            k, half = int(kind[3:]), read_len // 2
-            r = np.concatenate([codes[s : s + half], codes[s + half + k : s + k + read_len]])
-        else:
-            r = codes[s : s + read_len]
-        reads.append(r)
-    return reads
-
-
-def write_fq(path, reads, prefix):
-    with open(path, "wb") as f:
-        for i, r in enumerate(reads):
-            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix, i, DEC[r].tobytes(), b"I" * len(r)))
 
 
 def test_long_read_cli_twin(same_logq, tmp_path_factory):
@@ -97,13 +65,3 @@ def test_snapxl_20kb_twin(same_logq, tmp_path_factory):
         flag, pos, _ = recs[f"xl{i}"]
         assert not flag & 0x4 and abs(pos - (s + 1)) <= 2
     assert "D" in recs["xl1"][2]
-
-
-def parse_sam_bytes(sam: bytes) -> dict:
-    recs = {}
-    for ln in sam.decode().splitlines():
-        if ln.startswith("@"):
-            continue
-        t = ln.split("\t")
-        recs[t[0]] = (int(t[1]), int(t[3]), t[5])
-    return recs

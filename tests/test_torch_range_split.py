@@ -4,14 +4,14 @@ tests/test_range_split.py, and `single -t 3` through the CLI.
 The parallel parse over record-aligned byte ranges reproduces the
 single reader's stream exactly, in order (records straddling range
 boundaries, quality strings starting with '@' or '+'), with snap_tpu's
-ranges and batches. The aligner re-cuts those batches into the serial
-reader's, so `single -t 3` writes the SAM bytes of `-t 1` but for the
-@PG command line; the aligner's branches name the reader that parsed
-the reads. snap_tpu aligns the ranges' batches as they come, so the
-port's `-t N` equals snap_tpu's `-t N` only where no batch-level path
-(the DP tier's overflow, phase B's and C's row caps) turns on a batch's
-make-up: it does on the 128 reads twinned here, and not on the repeat
-reads of test_t3_keeps_t1_dp_overflow (ROADMAP C).
+ranges and batches. Every range ends in a short batch, and the aligner
+takes the ranges' batches as they come, as snap_tpu's does: a batch's
+make-up decides its batch-level paths (the DP tier's overflow, phase
+B's and C's row caps), so the port's `-t 3` writes snap_tpu's `-t 3`
+SAM bytes, and `-t 1`'s records only where no such path turns (it does
+not on the 128 reads here, and does on the repeat reads of
+test_t3_keeps_t1_dp_overflow). The aligner's branches name the reader
+that parsed the reads.
 """
 
 import numpy as np
@@ -75,28 +75,6 @@ def test_parallel_matches_serial(tmp_path, threads):
 
 
 @pytest.mark.skipif(not native_io.available(), reason="native runtime absent")
-@pytest.mark.parametrize("threads", [3, 5])
-def test_rebatch_gives_serial_batches(tmp_path, threads):
-    """The aligner re-cuts the ranges' batches (each range ends in a
-    short one) into the serial reader's: the same reads in the same
-    batches, so -t N aligns the batches -t 1 aligns."""
-    from snap_tpu_torch.align.single import _rebatch
-
-    rng = np.random.default_rng(threads + 10)
-    fq = tmp_path / "r.fq"
-    _write_fastq(str(fq), 301, rng)
-    serial = list(read_batches(str(fq), batch_size=64, max_len=128))
-    raw = list(parallel_read_batches(str(fq), batch_size=64, max_len=128, threads=threads))
-    assert [len(b) for b in raw] != [len(b) for b in serial]
-    got = list(_rebatch(iter(raw), 64))
-    assert [len(b) for b in got] == [len(b) for b in serial] == [64] * 4 + [45]
-    for g, w in zip(got, serial):
-        assert list(g.ids) == list(w.ids)
-        for f in ("bases", "quals", "lengths"):
-            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
-
-
-@pytest.mark.skipif(not native_io.available(), reason="native runtime absent")
 def test_boundary_snapping_on_at_quality(tmp_path):
     """A cut inside a record whose quality starts with '@' makes no
     phantom record, for every thread count."""
@@ -108,33 +86,66 @@ def test_boundary_snapping_on_at_quality(tmp_path):
         assert len(ids) == 40, n
 
 
+def _run_counted(side, directory, argv):
+    """One CLI run of `side` ("jax" or "torch"); returns the sizes of the
+    batches its aligner received (SingleEndAligner._submit), the reads
+    its fast path sent down the dp_overflow redo, and (the port) its
+    branch counts."""
+    import snap_tpu.align.pipeline as jpipeline
+    import snap_tpu.align.single as jsingle
+    import snap_tpu_torch.align.single as tsingle
+
+    mod = jsingle if side == "jax" else tsingle
+    sizes, flags = [], []
+    submit = mod.SingleEndAligner._submit
+
+    def counted(self, batch):
+        sizes.append(len(batch))
+        return submit(self, batch)
+
+    class Winners(jpipeline.HostWinners):
+        def __init__(self, packed):
+            super().__init__(packed)
+            flags.append(self.dp_overflow)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod.SingleEndAligner, "_submit", counted)
+        if side == "jax":
+            mp.setattr(jpipeline, "HostWinners", Winners)
+            run_jax(directory, argv)
+            # one HostWinners per fast-path batch, in submit order
+            overflow = sum(n for n, f in zip(sizes, flags) if f)
+            return {"sizes": sizes, "dp_overflow": overflow, "branches": {}}
+        br = run_torch(directory, argv)
+    return {"sizes": sizes, "dp_overflow": br.get("dp_overflow", 0), "branches": br}
+
+
 @pytest.fixture(scope="module")
 def threaded_runs(same_logq, tmp_path_factory):
     dirs = {}
-    branches = {}
-    for side, run in (("jax", run_jax), ("torch", run_torch)):
+    runs = {}
+    for side in ("jax", "torch"):
         d = tmp_path_factory.mktemp(f"threads_{side}")
         write_inputs(str(d), "random", 128)
-        run(d, ["index", "g.fa", "idx", "-s", "20"])
+        (run_jax if side == "jax" else run_torch)(d, ["index", "g.fa", "idx", "-s", "20"])
         for t in (1, 3):
-            br = run(d, ["single", "idx", "r.fq", "-o", f"t{t}.sam", "-b", "128", "-t", str(t)])
-            if side == "torch":
-                branches[t] = br
+            runs[side, t] = _run_counted(
+                side, d, ["single", "idx", "r.fq", "-o", f"t{t}.sam", "-b", "128", "-t", str(t)])
         dirs[side] = d
-    return dirs, branches
+    return dirs, {t: runs["torch", t]["branches"] for t in (1, 3)}, runs
 
 
 def test_single_t3_matches_snap_tpu(threaded_runs):
     """On these 128 reads no batch-level path turns on the ranges'
     batches, so the port's -t 3 equals snap_tpu's."""
-    dirs, _ = threaded_runs
+    dirs, _, _ = threaded_runs
     assert (dirs["torch"] / "t3.sam").read_bytes() == (dirs["jax"] / "t3.sam").read_bytes()
 
 
 @pytest.mark.skipif(not native_io.available(), reason="native runtime absent")
 def test_single_t3_matches_t1(threaded_runs):
     """-t 3 gives -t 1's records, and the branches name each reader."""
-    dirs, branches = threaded_runs
+    dirs, branches, _ = threaded_runs
     body = lambda p: [ln for ln in p.read_bytes().split(b"\n") if not ln.startswith(b"@PG")]
     assert body(dirs["torch"] / "t3.sam") == body(dirs["torch"] / "t1.sam")
     assert branches[1].get("reader_serial") == 128 and "reader_range_split" not in branches[1]
@@ -166,25 +177,50 @@ def _write_repeat_inputs(directory, n, seed=3):
             f.write(b"@q%d_%d\n%s\n+\n%s\n" % (i, s, dec[r].tobytes(), q.tobytes()))
 
 
+@pytest.fixture(scope="module")
+def repeat_runs(same_logq, tmp_path_factory):
+    """Both CLIs on the repeat inputs: 160 reads at -b 160, -t 1 and
+    -t 3."""
+    dirs, runs = {}, {}
+    for side in ("jax", "torch"):
+        d = tmp_path_factory.mktemp(f"repeat_{side}")
+        _write_repeat_inputs(d, 160)
+        (run_jax if side == "jax" else run_torch)(d, ["index", "g.fa", "idx", "-s", "20"])
+        for t in (1, 3):
+            runs[side, t] = _run_counted(
+                side, d, ["single", "idx", "r.fq", "-b", "160", "-t", str(t), "-o", f"t{t}.sam"])
+        dirs[side] = d
+    return dirs, runs
+
+
 @pytest.mark.skipif(not native_io.available(), reason="native runtime absent")
-def test_t3_keeps_t1_dp_overflow(tmp_path, monkeypatch):
+def test_t3_keeps_t1_dp_overflow(repeat_runs):
     """A case where the range split changes a batch-level path: 160
     repeat reads at -b 160 need more DP rows than phase A's tier holds
     (512) in -t 1's one batch, and fewer in each of the three ranges'
-    batches. -t 3 re-cut into -t 1's batch takes the same dp_overflow
-    redo and writes -t 1's SAM; aligned as the ranges cut them (as
-    snap_tpu aligns them), no batch overflows."""
-    import snap_tpu_torch.align.single as single
+    batches. -t 1 sends all 160 reads down the dp_overflow redo in both
+    packages; -t 3 aligns the ranges' batches as they come, in both, so
+    no batch overflows and the port writes snap_tpu's -t 3 SAM byte for
+    byte."""
+    dirs, runs = repeat_runs
+    for side in ("jax", "torch"):
+        assert runs[side, 1]["dp_overflow"] == 160, (side, runs[side, 1])
+        assert runs[side, 3]["dp_overflow"] == 0, (side, runs[side, 3])
+    assert runs["torch", 1]["branches"]["batches"] == 1
+    assert runs["torch", 3]["branches"]["batches"] == 3
+    assert (dirs["torch"] / "t3.sam").read_bytes() == (dirs["jax"] / "t3.sam").read_bytes()
+    assert (dirs["torch"] / "t1.sam").read_bytes() == (dirs["jax"] / "t1.sam").read_bytes()
 
-    _write_repeat_inputs(tmp_path, 160)
-    run_torch(tmp_path, ["index", "g.fa", "idx", "-s", "20"])
-    argv = ["single", "idx", "r.fq", "-b", "160", "-t"]
-    t1 = run_torch(tmp_path, argv + ["1", "-o", "t1.sam"])
-    t3 = run_torch(tmp_path, argv + ["3", "-o", "t3.sam"])
-    monkeypatch.setattr(single, "_rebatch", lambda source, batch_size: source)
-    ranges = run_torch(tmp_path, argv + ["3", "-o", "ranges.sam"])
-    assert t1.get("dp_overflow") == t3.get("dp_overflow") == 160, (t1, t3)
-    assert t3["batches"] == 1 and ranges["batches"] == 3, (t3, ranges)
-    assert "dp_overflow" not in ranges, ranges
-    body = lambda p: [ln for ln in p.read_bytes().split(b"\n") if not ln.startswith(b"@PG")]
-    assert body(tmp_path / "t3.sam") == body(tmp_path / "t1.sam")
+
+@pytest.mark.skipif(not native_io.available(), reason="native runtime absent")
+@pytest.mark.parametrize("case", ["random", "repeat"])
+def test_range_batches_as_snap_tpu(case, request):
+    """The -t 3 aligner receives the range reader's batches as they
+    come (each range ends in a short one), the batches snap_tpu's -t 3
+    aligner receives; -t 1's are the serial reader's."""
+    runs = (request.getfixturevalue("threaded_runs")[2] if case == "random"
+            else request.getfixturevalue("repeat_runs")[1])
+    n, b = (128, 128) if case == "random" else (160, 160)
+    assert runs["torch", 3]["sizes"] == runs["jax", 3]["sizes"]
+    assert runs["torch", 1]["sizes"] == runs["jax", 1]["sizes"] == [b]
+    assert sum(runs["torch", 3]["sizes"]) == n and len(runs["torch", 3]["sizes"]) == 3
