@@ -70,8 +70,8 @@ Phases, each printing one JSON line:
            kernel, baseline): how an earlier commit's kernel is put
            beside the current one without committing it (the DP and
            affine sources of the block-scan design need block_rows.cuh
-           beside them). The first batch's launches at -rl 400 and
-           1500 bp in the long phase get the same comparison.
+           beside them). The first batch's launches at -rl 256, -rl 400
+           and 1500 bp in the long phase get the same comparison.
   long     long reads through `single` with the script's error model:
            16384 reads of 250 bp at -rl 256 and 8192 of 400 bp at -rl 400
            (the CLI's -b 1024), and 256 reads of 1500 bp with
@@ -80,8 +80,8 @@ Phases, each printing one JSON line:
            long-row kernels (a block a row). An untimed run of the first
            4 batches (for 1500 bp, the one run, whose first batch is
            replayed) keeps every launch, replayed bit for bit; the first
-           batch's launches at -rl 400 and at 1500 bp (their rows, plen
-           and tlen spread printed) are timed as in the
+           batch's launches at -rl 256, -rl 400 and 1500 bp (their rows,
+           plen and tlen spread printed) are timed as in the
            kernels phase. Fails unless every kernel launched, 98% of
            primary MAPQ >= 10 records lie within 30 bp, and on any launch
            that differs.
@@ -110,8 +110,8 @@ line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
 in the timed paired run; the sums over the launches of one 16384-read
 phase-C step of its device time, its per-call time, its plain version's
 time and its bound; the launches replayed; each long and options run's
-launches; the sums over the first batch's launches at -rl 400 and
-1500 bp), the card's name and power limit, and as the last line
+launches; the sums over the first batch's launches at -rl 256, -rl 400
+and 1500 bp), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -515,6 +515,58 @@ def baselines(directory: str | None) -> dict:
     return out
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """The C++ names of mangled symbols (c++filt), without the anonymous
+    namespace and the parameter list; the mangled names where c++filt is
+    missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    if len(out) != len(names):
+        return names
+    short = []
+    for d in out:
+        d = d.replace("(anonymous namespace)::", "")
+        depth = 0
+        for i, ch in enumerate(d):  # cut at the parameter list's "("
+            depth += ch == "<"
+            depth -= ch == ">"
+            if ch == "(" and depth == 0:
+                d = d[:i]
+                break
+        short.append(d.removeprefix("void "))
+    return short
+
+
+def ptxas_functions(log: str) -> dict:
+    """Per kernel function of an nvcc -Xptxas -v log: its registers, the
+    bytes of its stack frame, spill stores and loads, and its static
+    shared memory."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return dict(zip(_demangle(list(funcs)), funcs.values()))
+
+
 def phase_build(base: dict):
     from snap_tpu_torch.ops import _build
 
@@ -522,14 +574,9 @@ def phase_build(base: dict):
     t0 = time.time()
     per = _build.build_all(names)
     secs = time.time() - t0
-    regs = {
-        n: [ln.strip() for ln in _build.BUILD_LOG.get(n, "").splitlines()
-            if "registers" in ln or "spill" in ln]
-        for n in names
-    }
     emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per.items()},
-          "ptxas": regs})
+          "ptxas": {n: ptxas_functions(_build.BUILD_LOG.get(n, "")) for n in names}})
 
 
 def phase_kernels(calls: dict, base: dict) -> dict:
@@ -1512,8 +1559,8 @@ def phase_long(seed: int, ctx: dict, workdir: str, base: dict) -> tuple[dict, li
     an untimed recording run of the first batches (for the 1500 bp
     reads, whose run is short, the one run) whose launches are replayed
     bit for bit, then the timed run; the launches of the first batch at
-    -rl 400 and at 1500 bp timed like the kernels phase's. Returns the
-    runs and the card-vs-CPU checks still to run on the CPU."""
+    -rl 256, -rl 400 and 1500 bp timed like the kernels phase's. Returns
+    the runs and the card-vs-CPU checks still to run on the CPU."""
     from snap_tpu_torch.cli import _load_index_cached
 
     rng = np.random.default_rng(seed + 3)
@@ -1550,7 +1597,7 @@ def phase_long(seed: int, ctx: dict, workdir: str, base: dict) -> tuple[dict, li
         if empty:
             fail("long", f"{tag}: no launch of {empty} recorded in the first batches")
         timed, spread = {}, {}
-        if rl in (400, XL_LEN):
+        if rl in (256, 400, XL_LEN):
             spread = launch_spread(first)
             timed = {k: launch_sums(v) for k, v in
                      time_launches(first, base, phase="long", plain_reps=0).items() if v}
@@ -1744,9 +1791,9 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     the paired recording run's first batches' and redo paths', summed in
     paired_launches_replayed); max_abs_err covers them too. The long
     and options phases add each run's launches, the launches replayed,
-    and the sums over the first batch's launches at -rl 400 and at
-    1500 bp (`rl400`, `rl1500`: device time, per-call time, bound; the
-    plain versions timed once, by their comparison call)."""
+    and the sums over the first batch's launches at -rl 256, -rl 400
+    and 1500 bp (`rl256`, `rl400`, `rl1500`: device time, per-call time,
+    bound; the plain versions timed once, by their comparison call)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

@@ -37,15 +37,9 @@
 //   computes only columns that a row of its pass has. Persistent single-warp blocks of a second
 //   kernel then take passes one at a time from a shared counter, so a
 //   short pass never holds a block of long ones back.
-// - Rows of more than 256 columns (long reads, L <= 512): one row per
-//   pass on 32 lanes of 10, 12, 14 or 16 columns (C rounded up to even:
-//   four instances, not eight; a lane's columns past plen are dead, as
-//   in any pass). Ten registers a column put such a lane past the 128
-//   that 16 resident warps per SM leave, so these passes go to a list
-//   of their own, which a third kernel built for 8 resident warps takes
-//   before the others (ptxas: 255 registers, 188 bytes spilled). The
-//   local readout's column key keeps 4 bits (C <= 16), and the counts
-//   pack as in the plain version.
+// - Rows of more than kXlCols = 256 columns (xl rows, long reads) go
+//   to a list of their own, taken by the block kernel below (see "xl
+//   rows").
 // - No scan. Within a row's G lanes the DP runs as an anti-diagonal
 //   wavefront: lane k owns columns [kC, kC + C) and works on text row
 //   s - k at step s, so the F carry (value, log-prob, counts, run start)
@@ -54,8 +48,8 @@
 // - Readouts are kept per lane over its own cells and reduced once per
 //   row at the end: global at the lane holding column plen-1 (>= over
 //   rows), local by (larger value, earlier row, larger column).
-// - Rows of more than 512 columns (reads past 512 bp): a fourth kernel,
-//   pass_row_kernel, below.
+// - Rows of more than 512 columns (reads past 512 bp): the block kernel
+//   below, pass_row_kernel, 256 threads a row.
 //
 // What held the first design of the big-row kernel back (one 256-thread
 // block a row, every thread on the same text row): (a) its nine state
@@ -77,6 +71,32 @@
 // step ahead. Persistent blocks, 2 per SM (<= 128 registers), take the
 // plan's big rows from its counter. ptxas (sm_90a): 128 registers, 6
 // bytes spilled (8 loaded back), 612 bytes of shared memory.
+//
+// xl rows (257-512 columns: -rl 400's reads). What held their first
+// design back (one row per pass of 32 lanes of 10-16 columns, a third
+// kernel built for 8 resident warps, run before the short passes): (a)
+// ten registers a column put a lane at 255 registers with 188 bytes
+// spilled, so an SM held 8 such warps, whose serial F chains over 12-16
+// columns, spill traffic and seven shuffles a step nothing hid; (b) the
+// short passes, launched after it on the same stream, waited for the
+// last xl row, so its tail left the card idle. It ran at 6.27x its bound
+// on the first -rl 400 batch (H100 80GB HBM3, 700.00 W).
+//
+// This design (pass_xl_row_kernel): the big rows' wavefront, one strip,
+// on kMidThreads = 64 threads of C = ceil(plen / 64) = 5-8 columns,
+// chosen per row so that nearly every thread holds columns (plen 280
+// fills 56 of 64 threads at C = 5, where 8 columns a thread would fill
+// 35). kMidBlocksPerSM = 6 resident blocks (12 warps per SM, <= 168
+// registers) keep every state plane in registers, as many as fit at
+// once. The plan's xl list feeds it as the big list feeds the big rows,
+// and it starts first; the short passes are its programmatic dependent
+// launch (griddepcontrol), so their warps start as soon as every xl
+// block has, on what the SMs have left, and take an SM over as its xl
+// blocks finish; a pass warp leaves only once the xl kernel is done.
+// Without that overlap the same launches take 1.55x as long (first -rl
+// 400 batch, H100 80GB HBM3, 700.00 W). ptxas (sm_90a): 160 registers,
+// no spills, 156 bytes of shared memory.
+//
 // Float arithmetic is __fadd_rn/__fmul_rn in the plain version's order
 // (and -fmad=false); the F log-prob is fadd(rlp, fmul(j - rj - 1,
 // log_ext)) from the carried run start, so the log-probabilities match
@@ -91,13 +111,17 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWindow = 32;  // rows sorted and planned together
 constexpr int kPlanWarps = 4;
 constexpr int kPassWarpsPerSM = 16;  // resident at <= 128 registers
-constexpr int kXlWarpsPerSM = 8;     // resident at <= 255 registers
-constexpr int kMaxCols = 512;        // 32 lanes of 16 columns; longer: big
-constexpr int kXlCols = 256;         // longer rows take the xl passes
+constexpr int kXlCols = 256;         // longer rows: one block a row
 constexpr int kHeader = 8;           // ints before the pass records
+// xl rows (kXlCols < plen <= kMaxCols, pass_xl_row_kernel, one strip):
+// threads a row, the most columns a thread, resident blocks per SM
+constexpr int kMidThreads = 64;
+constexpr int kMidC = 8;
+constexpr int kMaxCols = kMidThreads * kMidC;  // longer: big rows
+constexpr int kMidBlocksPerSM = 6;
 // big rows (pass_row_kernel): threads a row, columns a thread, resident
-// blocks per SM (ops/affine_cuda.py sizes the scratch from the same
-// numbers)
+// blocks per SM (ops/affine_cuda.py sizes the blocks and scratch from
+// the same numbers)
 constexpr int kRowThreads = 256;
 constexpr int kRowC = 8;
 constexpr int kRowCols = kRowThreads * kRowC;
@@ -363,16 +387,11 @@ __device__ __forceinline__ void run_pass(const Args& a, const int* rec) {
 // Lanes per row of a pass whose largest row has mp columns: the
 // narrowest G with C = ceil(mp / G) <= 5, so that a lane's columns stay
 // in registers at 16 warps per SM; 32 beyond 160 columns (C <= 8; past
-// kXlCols an xl pass). With fewer than 4 rows per resident warp, every
-// pass takes one row on 32 lanes, so that the few rows still occupy the
-// card.
+// kXlCols an xl row, a block each). With fewer than 4 rows per resident
+// warp, every pass takes one row on 32 lanes, so that the few rows still
+// occupy the card.
 __device__ __forceinline__ int pass_width(int mp, bool wide) {
   return wide ? 32 : (mp <= 40 ? 8 : (mp <= 80 ? 16 : 32));
-}
-
-// Columns per lane of an xl pass over a row of pl > kXlCols columns
-__device__ __forceinline__ int xl_cols(int pl) {
-  return ((pl + 31) / 32 + 1) & ~1;
 }
 
 __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
@@ -398,20 +417,6 @@ __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
   SNAP_AG_PASS(32, 6)
   SNAP_AG_PASS(32, 7)
   SNAP_AG_PASS(32, 8)
-#undef SNAP_AG_PASS
-}
-
-__device__ __forceinline__ void dispatch_xl(const Args& a, const int* rec) {
-  const int C = rec[4] & 0xff;
-#define SNAP_AG_PASS(CC)         \
-  if (C == CC) {                 \
-    run_pass<32, CC>(a, rec);    \
-    return;                      \
-  }
-  SNAP_AG_PASS(10)
-  SNAP_AG_PASS(12)
-  SNAP_AG_PASS(14)
-  SNAP_AG_PASS(16)
 #undef SNAP_AG_PASS
 }
 
@@ -496,39 +501,25 @@ __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
 }
 
 // Persistent warps, each taking the next pass of the plan (the long
-// ones first) until none is left.
+// ones first) until none is left. Launched as the xl rows' dependent
+// (programmatic dependent launch), they fill the SMs beside those rows;
+// a warp leaves only once the xl rows' kernel is done, so that work
+// queued after this kernel sees every row written.
 __global__ void __launch_bounds__(32, kPassWarpsPerSM) pass_kernel(const Args a) {
   const int nlong = a.plan[0], total = nlong + a.plan[1];
   for (;;) {
     int t = 0;
     if (threadIdx.x == 0) t = atomicAdd(&a.plan[2], 1);
     t = __shfl_sync(kFull, t, 0);
-    if (t >= total) return;
+    if (t >= total) break;
     const long slot = t < nlong ? t : a.N - 1 - (t - nlong);
     dispatch(a, a.plan + kHeader + 8 * slot);
   }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// Persistent warps of up to 255 registers, each taking the next xl row
-// of the plan until none is left.
-__global__ void __launch_bounds__(32, kXlWarpsPerSM) pass_xl_kernel(const Args a) {
-  const int total = a.plan[3];
-  const int* rows = a.plan + kHeader + 8L * a.N;
-  for (;;) {
-    int t = 0;
-    if (threadIdx.x == 0) t = atomicAdd(&a.plan[4], 1);
-    t = __shfl_sync(kFull, t, 0);
-    if (t >= total) return;
-    const int row = rows[t];
-    const int rec[5] = {row, -1, -1, -1,
-                        (32 << 8) | xl_cols(clamp_len(a.plen[row], a.L))};
-    dispatch_xl(a, rec);
-  }
-}
-
-// Persistent blocks, each taking the next big row of the plan (more than
-// kMaxCols columns) until none is left: a skewed wavefront over the
-// block's threads. Thread t owns C consecutive pattern columns of the
+// One row on a block of P threads: a skewed wavefront over the block's
+// threads. Thread t owns C consecutive pattern columns of the
 // current strip (P * C columns wide; a wider row runs strip by strip)
 // and works on text row s - t at step s. From thread t - 1, which
 // finished row i one step earlier, come H of its last column at row i
@@ -537,306 +528,349 @@ __global__ void __launch_bounds__(32, kXlWarpsPerSM) pass_xl_kernel(const Args a
 // through a two-slot shared ring (one barrier a step), across strips
 // through `bnd`, where the strip's last thread writes them for every
 // text row and the next strip's thread 0 reads them one step ahead.
-// The readouts stay per thread and are reduced once a row.
+// The readouts stay per thread and are reduced once a row; `xf` and
+// `red` are the block's shared ring and reduction slots.
 template <int P, int C>
-__global__ void __launch_bounds__(P, kRowBlocksPerSM) pass_row_kernel(
-    const Args a, int4* __restrict__ bnd) {
+__device__ __forceinline__ void wavefront_row(const Args& a, int row,
+                                              int4* my_bnd,
+                                              int (&xf)[2][P / 32][7],
+                                              int (&red)[P / 32][5]) {
   constexpr int NW = P / 32, SW = P * C;
-  __shared__ int xf[2][NW][7];
-  __shared__ int red[NW][5];
-  __shared__ int item;
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int L = a.L, OPEN = a.OPEN, EXT = a.EXT;
   const float log_open = a.log_open, log_ext = a.log_ext;
+  const int pl = clamp_len(a.plen[row], L), tl = clamp_len(a.tlen[row], a.T);
+  const int S = (pl + SW - 1) / SW;
+  const int si = a.sinit[row];
+  const long prow = (long)row * L;
+  const unsigned char* trow = a.text + (long)row * a.T;
+  // readouts of this thread's cells: global (column plen-1, ties to
+  // the later row) and local (larger value, earlier row, larger column)
+  bool owns_g = false;
+  int bg = -1, bg_row = 0, bg_ct = 0;
+  float bg_lp = a.neg_f;
+  int bl = -1, bl_row = 0, bl_col = 0, bl_ct = 0;
+  float bl_lp = a.neg_f;
+
+  for (int k = 0; k < S; ++k) {
+    const int base = k * SW + t * C;
+    const int nact = min(P, (pl - k * SW + C - 1) / C);
+    // columns past plen are dead: the local readout skips them
+    const int nlive = min(max(pl - base, 0), C);
+    int pc[C], h[C], hc[C], e[C], ec[C];
+    float lq[C], hl[C], el[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = base + c;
+      const bool live = j < pl;
+      pc[c] = live ? (int)a.pat[prow + j] : 0;
+      lq[c] = live ? a.logq[prow + j] : 0.0f;
+      // row -1: leading pattern insertions charged from score_init
+      h[c] = live ? max(0, si - OPEN - j * EXT) : kNegI;
+      hl[c] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
+      hc[c] = (j + 1) << 10;
+      e[c] = 0;
+      el[c] = a.neg_f;
+      ec[c] = 0;
+    }
+    // diagonal input of column `base` at the current row: H(i-1,
+    // base-1); column -1 at row -1 is score_init itself
+    int dh, dc;
+    float dl;
+    if (base == 0) {
+      dh = si;
+      dl = 0.0f;
+      dc = 0;
+    } else {
+      dh = max(0, si - OPEN - (base - 1) * EXT);
+      dl = __fadd_rn(__fmul_rn((float)(base - 1), log_ext), log_open);
+      dc = base << 10;
+    }
+    // what this thread hands thread t + 1: H of its last column and the
+    // F carry after it, for the row it just finished
+    int oh = 0, ohc = 0, orv = kNegI, orct = 0;
+    float ohl = 0.0f, orlp = 0.0f, orj = 0.0f;
+    int4 nx0 = make_int4(0, 0, 0, 0), nx1 = nx0;
+    if (t == 0 && k > 0) {
+      nx0 = __ldcg(my_bnd);
+      nx1 = __ldcg(my_bnd + 1);
+    }
+    const int cstar = pl - 1 - base;  // global column's slot
+    owns_g = owns_g || (cstar >= 0 && cstar < C);
+    int sl = -1, sl_row = 0, sl_col = 0, sl_ct = 0;
+    float sl_lp = a.neg_f;
+    const int baseE = base * EXT;
+    const int baseS = base << 10;
+    const float basef = (float)base;
+    int tb_nx = trow[0];
+    const int steps = tl + nact - 1;
+
+    for (int s = 0; s < steps; ++s) {
+      int ih = __shfl_up_sync(kFull, oh, 1);
+      float ihl = __shfl_up_sync(kFull, ohl, 1);
+      int ihc = __shfl_up_sync(kFull, ohc, 1);
+      int rv = __shfl_up_sync(kFull, orv, 1);
+      float rlp = __shfl_up_sync(kFull, orlp, 1);
+      int rct = __shfl_up_sync(kFull, orct, 1);
+      float rjf = __shfl_up_sync(kFull, orj, 1);
+      const int i = s - t;
+      if (lane == 0 && w > 0) {
+        const int* x = xf[(s - 1) & 1][w - 1];
+        ih = x[0];
+        ihl = __int_as_float(x[1]);
+        ihc = x[2];
+        rv = x[3];
+        rlp = __int_as_float(x[4]);
+        rct = x[5];
+        rjf = __int_as_float(x[6]);
+      } else if (t == 0 && k > 0) {
+        // the previous strip's last column at row i (= s)
+        ih = nx0.x;
+        ihl = __int_as_float(nx0.y);
+        ihc = nx0.z;
+        rv = nx0.w;
+        rlp = __int_as_float(nx1.x);
+        rct = nx1.y;
+        rjf = __int_as_float(nx1.z);
+        if (s + 1 < tl) {
+          nx0 = __ldcg(my_bnd + 2L * (s + 1));
+          nx1 = __ldcg(my_bnd + 2L * (s + 1) + 1);
+        }
+      } else if (t == 0) {
+        // column -1 at row i (the next row's h_init): i + 1 deletions
+        ih = max(0, si - OPEN - i * EXT);
+        ihl = __fadd_rn(log_open, __fmul_rn((float)i, log_ext));
+        ihc = i + 1;
+        rv = kNegI;  // no insertion run enters column 0
+      }
+      const int tb = tb_nx;
+      tb_nx = trow[min(max(i + 1, 0), tl - 1)];
+      if (t < nact && i >= 0 && i < tl) {
+        const bool tbn = tb >= 4;
+        // carry: rv = best max(M - OPEN, 0) + l * EXT over columns
+        // l < j, rlp its open log-prob, rct its counts less (l << 10),
+        // rj = l - base
+        float rj = __fsub_rn(rjf, basef);
+        int hd = dh, hdc = dc;
+        float hdl = dl;
+        int rk = -1, rkc = 0, gv = 0, gc = 0;
+        float rkl = 0.0f, gl = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const bool eq = tb == pc[c];
+          // mismatch: -SUB, or -1 where the pattern or text has an N
+          int sc = eq ? a.MATCH : (pc[c] >= 4 ? -1 : -a.SUB);
+          sc = tbn ? -1 : sc;
+          const int m = hd > 0 ? hd + sc : 0;
+          const float mlp = __fadd_rn(hdl, eq ? 0.0f : lq[c]);
+          const int mct = hdc + (eq ? 0 : (1 << 20));
+          const int tt = max(m - OPEN, 0);
+          const int adj = tt + baseE + c * EXT;
+          const float slp = __fadd_rn(mlp, log_open);
+          // F at j = base + c from the run start carried over columns < j
+          const int f = rv - baseE - (c - 1) * EXT;
+          const float flp = __fadd_rn(
+              rlp, __fmul_rn(__fsub_rn((float)(c - 1), rj), log_ext));
+          const int fct = rct + baseS + (c << 10);
+          if (adj >= rv) {  // ties: the later run start
+            rv = adj;
+            rlp = slp;
+            rct = mct - baseS - (c << 10);
+            rj = (float)c;
+          }
+          // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
+          const bool te = e[c] > m;
+          int hh = te ? e[c] : m;
+          float hhl = te ? el[c] : mlp;
+          int hhc = te ? ec[c] : mct;
+          if (f > hh) {
+            hh = f;
+            hhl = flp;
+            hhc = fct;
+          }
+          // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
+          const int e_ext = e[c] - EXT;
+          const bool tx = e_ext > tt;
+          const float eln = tx ? __fadd_rn(el[c], log_ext) : slp;
+          ec[c] = (tx ? ec[c] : mct) + 1;
+          e[c] = tx ? e_ext : tt;
+          el[c] = eln;
+          // the old H is the next column's diagonal input
+          hd = h[c];
+          hdl = hl[c];
+          hdc = hc[c];
+          h[c] = hh;
+          hl[c] = hhl;
+          hc[c] = hhc;
+          // local: the row's best of this thread's columns, ties to the
+          // larger
+          const int key = hh * 16 + c;
+          if (c < nlive && key > rk) {
+            rk = key;
+            rkl = hhl;
+            rkc = hhc;
+          }
+          if (c == cstar) {
+            gv = hh;
+            gl = hhl;
+            gc = hhc;
+          }
+        }
+        oh = h[C - 1];
+        ohl = hl[C - 1];
+        ohc = hc[C - 1];
+        orv = rv;
+        orlp = rlp;
+        orct = rct;
+        orj = __fadd_rn(rj, basef);
+        dh = ih;
+        dl = ihl;
+        dc = ihc;
+        if (cstar >= 0 && cstar < C && gv >= bg) {  // ties: the later row
+          bg = gv;
+          bg_row = i;
+          bg_lp = gl;
+          bg_ct = gc;
+        }
+        if ((rk >> 4) > sl) {  // strictly greater: the earlier row keeps it
+          sl = rk >> 4;
+          sl_row = i;
+          sl_col = base + (rk & 15);
+          sl_lp = rkl;
+          sl_ct = rkc;
+        }
+        if (t == P - 1 && k + 1 < S) {
+          __stcg(my_bnd + 2L * i, make_int4(oh, __float_as_int(ohl), ohc, orv));
+          __stcg(my_bnd + 2L * i + 1,
+                 make_int4(__float_as_int(orlp), orct, __float_as_int(orj), 0));
+        }
+      }
+      if (lane == 31 && w + 1 < NW) {
+        int* x = xf[s & 1][w];
+        x[0] = oh;
+        x[1] = __float_as_int(ohl);
+        x[2] = ohc;
+        x[3] = orv;
+        x[4] = __float_as_int(orlp);
+        x[5] = orct;
+        x[6] = __float_as_int(orj);
+      }
+      __syncthreads();
+    }
+    if (sl > bl || (sl == bl && (sl_row < bl_row ||
+                                 (sl_row == bl_row && sl_col > bl_col)))) {
+      bl = sl;
+      bl_row = sl_row;
+      bl_col = sl_col;
+      bl_lp = sl_lp;
+      bl_ct = sl_ct;
+    }
+  }
+
+  int* oi = a.out_i + (long)row * 7;
+  if (owns_g) {
+    oi[0] = bg;
+    oi[1] = bg_row;
+    oi[2] = bg_ct;
+    a.out_f[(long)row * 2] = bg_lp;
+  }
+  // local: larger value, then the earlier row, then the larger column
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, bl, off);
+    const int orow = __shfl_xor_sync(kFull, bl_row, off);
+    const int ocol = __shfl_xor_sync(kFull, bl_col, off);
+    const int oct = __shfl_xor_sync(kFull, bl_ct, off);
+    const float olp = __shfl_xor_sync(kFull, bl_lp, off);
+    if (ov > bl ||
+        (ov == bl && (orow < bl_row || (orow == bl_row && ocol > bl_col)))) {
+      bl = ov;
+      bl_row = orow;
+      bl_col = ocol;
+      bl_ct = oct;
+      bl_lp = olp;
+    }
+  }
+  if (lane == 0) {
+    red[w][0] = bl;
+    red[w][1] = bl_row;
+    red[w][2] = bl_col;
+    red[w][3] = bl_ct;
+    red[w][4] = __float_as_int(bl_lp);
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int q2 = 1; q2 < NW; ++q2) {
+      const int* r = red[q2];
+      if (r[0] > bl ||
+          (r[0] == bl && (r[1] < bl_row || (r[1] == bl_row && r[2] > bl_col)))) {
+        bl = r[0];
+        bl_row = r[1];
+        bl_col = r[2];
+        bl_ct = r[3];
+        bl_lp = __int_as_float(r[4]);
+      }
+    }
+    oi[3] = bl;
+    oi[4] = bl_row;
+    oi[5] = bl_col;
+    oi[6] = bl_ct;
+    a.out_f[(long)row * 2 + 1] = bl_lp;
+  }
+}
+
+// Persistent blocks, each taking the next big row of the plan (more than
+// kMaxCols columns) until none is left.
+template <int P, int C>
+__global__ void __launch_bounds__(P, kRowBlocksPerSM) pass_row_kernel(
+    const Args a, int4* __restrict__ bnd) {
+  __shared__ int xf[2][P / 32][7];
+  __shared__ int red[P / 32][5];
+  __shared__ int item;
   const int total = a.plan[5];
   const int* big = a.plan + kHeader + 8L * a.N + a.N - 1;  // big[-q]
   int4* my_bnd = bnd + (long)blockIdx.x * a.T * 2;
-
   for (;;) {
-    if (t == 0) item = atomicAdd(&a.plan[6], 1);
+    if (threadIdx.x == 0) item = atomicAdd(&a.plan[6], 1);
     __syncthreads();
     const int q = item;
     __syncthreads();  // `item` is read before thread 0 takes the next
     if (q >= total) return;
-    const int row = big[-q];
-    const int pl = clamp_len(a.plen[row], L), tl = clamp_len(a.tlen[row], a.T);
-    const int S = (pl + SW - 1) / SW;
-    const int si = a.sinit[row];
-    const long prow = (long)row * L;
-    const unsigned char* trow = a.text + (long)row * a.T;
-    // readouts of this thread's cells: global (column plen-1, ties to
-    // the later row) and local (larger value, earlier row, larger column)
-    bool owns_g = false;
-    int bg = -1, bg_row = 0, bg_ct = 0;
-    float bg_lp = a.neg_f;
-    int bl = -1, bl_row = 0, bl_col = 0, bl_ct = 0;
-    float bl_lp = a.neg_f;
+    wavefront_row<P, C>(a, big[-q], my_bnd, xf, red);
+  }
+}
 
-    for (int k = 0; k < S; ++k) {
-      const int base = k * SW + t * C;
-      const int nact = min(P, (pl - k * SW + C - 1) / C);
-      // columns past plen are dead: the local readout skips them
-      const int nlive = min(max(pl - base, 0), C);
-      int pc[C], h[C], hc[C], e[C], ec[C];
-      float lq[C], hl[C], el[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = base + c;
-        const bool live = j < pl;
-        pc[c] = live ? (int)a.pat[prow + j] : 0;
-        lq[c] = live ? a.logq[prow + j] : 0.0f;
-        // row -1: leading pattern insertions charged from score_init
-        h[c] = live ? max(0, si - OPEN - j * EXT) : kNegI;
-        hl[c] = __fadd_rn(__fmul_rn((float)j, log_ext), log_open);
-        hc[c] = (j + 1) << 10;
-        e[c] = 0;
-        el[c] = a.neg_f;
-        ec[c] = 0;
-      }
-      // diagonal input of column `base` at the current row: H(i-1,
-      // base-1); column -1 at row -1 is score_init itself
-      int dh, dc;
-      float dl;
-      if (base == 0) {
-        dh = si;
-        dl = 0.0f;
-        dc = 0;
-      } else {
-        dh = max(0, si - OPEN - (base - 1) * EXT);
-        dl = __fadd_rn(__fmul_rn((float)(base - 1), log_ext), log_open);
-        dc = base << 10;
-      }
-      // what this thread hands thread t + 1: H of its last column and the
-      // F carry after it, for the row it just finished
-      int oh = 0, ohc = 0, orv = kNegI, orct = 0;
-      float ohl = 0.0f, orlp = 0.0f, orj = 0.0f;
-      int4 nx0 = make_int4(0, 0, 0, 0), nx1 = nx0;
-      if (t == 0 && k > 0) {
-        nx0 = __ldcg(my_bnd);
-        nx1 = __ldcg(my_bnd + 1);
-      }
-      const int cstar = pl - 1 - base;  // global column's slot
-      owns_g = owns_g || (cstar >= 0 && cstar < C);
-      int sl = -1, sl_row = 0, sl_col = 0, sl_ct = 0;
-      float sl_lp = a.neg_f;
-      const int baseE = base * EXT;
-      const int baseS = base << 10;
-      const float basef = (float)base;
-      int tb_nx = trow[0];
-      const int steps = tl + nact - 1;
-
-      for (int s = 0; s < steps; ++s) {
-        int ih = __shfl_up_sync(kFull, oh, 1);
-        float ihl = __shfl_up_sync(kFull, ohl, 1);
-        int ihc = __shfl_up_sync(kFull, ohc, 1);
-        int rv = __shfl_up_sync(kFull, orv, 1);
-        float rlp = __shfl_up_sync(kFull, orlp, 1);
-        int rct = __shfl_up_sync(kFull, orct, 1);
-        float rjf = __shfl_up_sync(kFull, orj, 1);
-        const int i = s - t;
-        if (lane == 0 && w > 0) {
-          const int* x = xf[(s - 1) & 1][w - 1];
-          ih = x[0];
-          ihl = __int_as_float(x[1]);
-          ihc = x[2];
-          rv = x[3];
-          rlp = __int_as_float(x[4]);
-          rct = x[5];
-          rjf = __int_as_float(x[6]);
-        } else if (t == 0 && k > 0) {
-          // the previous strip's last column at row i (= s)
-          ih = nx0.x;
-          ihl = __int_as_float(nx0.y);
-          ihc = nx0.z;
-          rv = nx0.w;
-          rlp = __int_as_float(nx1.x);
-          rct = nx1.y;
-          rjf = __int_as_float(nx1.z);
-          if (s + 1 < tl) {
-            nx0 = __ldcg(my_bnd + 2L * (s + 1));
-            nx1 = __ldcg(my_bnd + 2L * (s + 1) + 1);
-          }
-        } else if (t == 0) {
-          // column -1 at row i (the next row's h_init): i + 1 deletions
-          ih = max(0, si - OPEN - i * EXT);
-          ihl = __fadd_rn(log_open, __fmul_rn((float)i, log_ext));
-          ihc = i + 1;
-          rv = kNegI;  // no insertion run enters column 0
-        }
-        const int tb = tb_nx;
-        tb_nx = trow[min(max(i + 1, 0), tl - 1)];
-        if (t < nact && i >= 0 && i < tl) {
-          const bool tbn = tb >= 4;
-          // carry: rv = best max(M - OPEN, 0) + l * EXT over columns
-          // l < j, rlp its open log-prob, rct its counts less (l << 10),
-          // rj = l - base
-          float rj = __fsub_rn(rjf, basef);
-          int hd = dh, hdc = dc;
-          float hdl = dl;
-          int rk = -1, rkc = 0, gv = 0, gc = 0;
-          float rkl = 0.0f, gl = 0.0f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const bool eq = tb == pc[c];
-            // mismatch: -SUB, or -1 where the pattern or text has an N
-            int sc = eq ? a.MATCH : (pc[c] >= 4 ? -1 : -a.SUB);
-            sc = tbn ? -1 : sc;
-            const int m = hd > 0 ? hd + sc : 0;
-            const float mlp = __fadd_rn(hdl, eq ? 0.0f : lq[c]);
-            const int mct = hdc + (eq ? 0 : (1 << 20));
-            const int tt = max(m - OPEN, 0);
-            const int adj = tt + baseE + c * EXT;
-            const float slp = __fadd_rn(mlp, log_open);
-            // F at j = base + c from the run start carried over columns < j
-            const int f = rv - baseE - (c - 1) * EXT;
-            const float flp = __fadd_rn(
-                rlp, __fmul_rn(__fsub_rn((float)(c - 1), rj), log_ext));
-            const int fct = rct + baseS + (c << 10);
-            if (adj >= rv) {  // ties: the later run start
-              rv = adj;
-              rlp = slp;
-              rct = mct - baseS - (c << 10);
-              rj = (float)c;
-            }
-            // H = max(M, E, F): E wins only if > M, F only if > max(M, E)
-            const bool te = e[c] > m;
-            int hh = te ? e[c] : m;
-            float hhl = te ? el[c] : mlp;
-            int hhc = te ? ec[c] : mct;
-            if (f > hh) {
-              hh = f;
-              hhl = flp;
-              hhc = fct;
-            }
-            // E for the next row: max(E - EXT, M - OPEN, 0); a tie opens
-            const int e_ext = e[c] - EXT;
-            const bool tx = e_ext > tt;
-            const float eln = tx ? __fadd_rn(el[c], log_ext) : slp;
-            ec[c] = (tx ? ec[c] : mct) + 1;
-            e[c] = tx ? e_ext : tt;
-            el[c] = eln;
-            // the old H is the next column's diagonal input
-            hd = h[c];
-            hdl = hl[c];
-            hdc = hc[c];
-            h[c] = hh;
-            hl[c] = hhl;
-            hc[c] = hhc;
-            // local: the row's best of this thread's columns, ties to the
-            // larger
-            const int key = hh * 16 + c;
-            if (c < nlive && key > rk) {
-              rk = key;
-              rkl = hhl;
-              rkc = hhc;
-            }
-            if (c == cstar) {
-              gv = hh;
-              gl = hhl;
-              gc = hhc;
-            }
-          }
-          oh = h[C - 1];
-          ohl = hl[C - 1];
-          ohc = hc[C - 1];
-          orv = rv;
-          orlp = rlp;
-          orct = rct;
-          orj = __fadd_rn(rj, basef);
-          dh = ih;
-          dl = ihl;
-          dc = ihc;
-          if (cstar >= 0 && cstar < C && gv >= bg) {  // ties: the later row
-            bg = gv;
-            bg_row = i;
-            bg_lp = gl;
-            bg_ct = gc;
-          }
-          if ((rk >> 4) > sl) {  // strictly greater: the earlier row keeps it
-            sl = rk >> 4;
-            sl_row = i;
-            sl_col = base + (rk & 15);
-            sl_lp = rkl;
-            sl_ct = rkc;
-          }
-          if (t == P - 1 && k + 1 < S) {
-            __stcg(my_bnd + 2L * i, make_int4(oh, __float_as_int(ohl), ohc, orv));
-            __stcg(my_bnd + 2L * i + 1,
-                   make_int4(__float_as_int(orlp), orct, __float_as_int(orj), 0));
-          }
-        }
-        if (lane == 31 && w + 1 < NW) {
-          int* x = xf[s & 1][w];
-          x[0] = oh;
-          x[1] = __float_as_int(ohl);
-          x[2] = ohc;
-          x[3] = orv;
-          x[4] = __float_as_int(orlp);
-          x[5] = orct;
-          x[6] = __float_as_int(orj);
-        }
-        __syncthreads();
-      }
-      if (sl > bl || (sl == bl && (sl_row < bl_row ||
-                                   (sl_row == bl_row && sl_col > bl_col)))) {
-        bl = sl;
-        bl_row = sl_row;
-        bl_col = sl_col;
-        bl_lp = sl_lp;
-        bl_ct = sl_ct;
-      }
-    }
-
-    int* oi = a.out_i + (long)row * 7;
-    if (owns_g) {
-      oi[0] = bg;
-      oi[1] = bg_row;
-      oi[2] = bg_ct;
-      a.out_f[(long)row * 2] = bg_lp;
-    }
-    // local: larger value, then the earlier row, then the larger column
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int ov = __shfl_xor_sync(kFull, bl, off);
-      const int orow = __shfl_xor_sync(kFull, bl_row, off);
-      const int ocol = __shfl_xor_sync(kFull, bl_col, off);
-      const int oct = __shfl_xor_sync(kFull, bl_ct, off);
-      const float olp = __shfl_xor_sync(kFull, bl_lp, off);
-      if (ov > bl ||
-          (ov == bl && (orow < bl_row || (orow == bl_row && ocol > bl_col)))) {
-        bl = ov;
-        bl_row = orow;
-        bl_col = ocol;
-        bl_ct = oct;
-        bl_lp = olp;
-      }
-    }
-    if (lane == 0) {
-      red[w][0] = bl;
-      red[w][1] = bl_row;
-      red[w][2] = bl_col;
-      red[w][3] = bl_ct;
-      red[w][4] = __float_as_int(bl_lp);
-    }
+// Persistent blocks of P threads (B resident per SM), each taking the
+// next xl row of the plan (kXlCols < plen <= P * kMidC columns, one
+// strip) until none is left, at the fewest columns a thread that cover
+// the row: C = ceil(plen / P), so that nearly every thread and lane of
+// the block holds columns. The pass kernel, launched as this kernel's
+// programmatic dependent, starts once every block has.
+template <int P, int B>
+__global__ void __launch_bounds__(P, B) pass_xl_row_kernel(const Args a) {
+  __shared__ int xf[2][P / 32][7];
+  __shared__ int red[P / 32][5];
+  __shared__ int item;
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int total = a.plan[3];
+  const int* xl = a.plan + kHeader + 8L * a.N;
+  for (;;) {
+    if (threadIdx.x == 0) item = atomicAdd(&a.plan[4], 1);
     __syncthreads();
-    if (t == 0) {
-      for (int q2 = 1; q2 < NW; ++q2) {
-        const int* r = red[q2];
-        if (r[0] > bl ||
-            (r[0] == bl && (r[1] < bl_row || (r[1] == bl_row && r[2] > bl_col)))) {
-          bl = r[0];
-          bl_row = r[1];
-          bl_col = r[2];
-          bl_ct = r[3];
-          bl_lp = __int_as_float(r[4]);
-        }
-      }
-      oi[3] = bl;
-      oi[4] = bl_row;
-      oi[5] = bl_col;
-      oi[6] = bl_ct;
-      a.out_f[(long)row * 2 + 1] = bl_lp;
-    }
+    const int q = item;
+    __syncthreads();  // `item` is read before thread 0 takes the next
+    if (q >= total) return;
+    const int row = xl[q];
+    const int cols = (clamp_len(a.plen[row], a.L) + P - 1) / P;
+    // one strip: no scratch
+    if (cols <= 5)
+      wavefront_row<P, 5>(a, row, nullptr, xf, red);
+    else if (cols <= 6)
+      wavefront_row<P, 6>(a, row, nullptr, xf, red);
+    else if (cols <= 7)
+      wavefront_row<P, 7>(a, row, nullptr, xf, red);
+    else
+      wavefront_row<P, kMidC>(a, row, nullptr, xf, red);
   }
 }
 
@@ -878,8 +912,23 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
   if (L > kMaxCols)  // no row is big otherwise
     pass_row_kernel<kRowThreads, kRowC><<<(unsigned)blocks, kRowThreads, 0, s>>>(
         a, (int4*)scratch);
-  if (L > kXlCols)  // no row can take an xl pass otherwise
-    pass_xl_kernel<<<(unsigned)min(N, sms * kXlWarpsPerSM), 32, 0, s>>>(a);
-  pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  if (L <= kXlCols) {  // no row is xl
+    pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  // the xl rows start first, as many at once as fit; the short passes
+  // start as soon as all of them have (programmatic dependent launch)
+  pass_xl_row_kernel<kMidThreads, kMidBlocksPerSM>
+      <<<(unsigned)min(N, sms * kMidBlocksPerSM), kMidThreads, 0, s>>>(a);
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)min(N, slots));
+  cfg.blockDim = dim3(32);
+  cfg.stream = s;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, pass_kernel, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

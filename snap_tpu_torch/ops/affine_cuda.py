@@ -5,7 +5,8 @@ ops.affine.affine_extend_core_plain (the recurrence) and
 `affine_extend_cuda` that of ops.affine.affine_extend_plain (the
 recurrence and the shared torch epilogue finish_extend). CUDA tensors
 launch the kernel; CPU tensors run the plain version. Rows of more than
-MAX_L pattern columns run one block a row; patterns wider than one strip
+256 pattern columns run one block a row (64 threads up to MAX_L columns,
+_build.long_row_blocks blocks of 256 beyond); patterns wider than one strip
 (_build.LONG_ROW_STRIP_COLS) also pass each strip's right edge to the
 next through scratch that the wrapper allocates, 8 words per block and
 text row.
@@ -29,7 +30,7 @@ from .affine import (
 )
 from ..constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
 
-MAX_L = 512  # 16 pattern columns per lane of a 32-lane row; longer: big rows
+MAX_L = 512  # 64 threads of up to 8 columns a row; longer: big rows
 
 
 def plan_ints(N: int) -> int:

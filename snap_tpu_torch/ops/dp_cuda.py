@@ -2,10 +2,12 @@
 
 Same signature as ops.dp.fitting_edit_distance_plain. CUDA tensors
 launch the kernel; CPU tensors run the plain version. Rows of more than
-MAX_COLS DP columns (W + 1) run one block a row (a row counter that the
-wrapper allocates); rows wider than one strip (_build.LONG_ROW_STRIP_COLS)
-also pass each strip's right edge to the next through scratch, 8 words
-per block and pattern row.
+MAX_COLS DP columns (W + 1) run one block a row, taking rows from a
+counter that the wrapper allocates: one warp (128 threads in launches of
+few rows) up to MID_COLS columns, 256 threads beyond
+(_build.long_row_blocks blocks); rows wider than one strip
+(_build.LONG_ROW_STRIP_COLS) also pass each strip's right edge to the
+next through scratch, 8 words per block and pattern row.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .dp import (
     fitting_edit_distance_core_plain,
 )
 
-MAX_COLS = 512  # W + 1 of the one-warp kernel: 16 columns per lane
+MAX_COLS = 256  # W + 1 of the one-warp kernel: 8 columns per lane
+MID_COLS = 512  # W + 1 of the mid-width kernel: one strip a row
 
 
 KERNEL = _build.Kernel(
@@ -60,8 +63,9 @@ def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
             raise ValueError(f"fitting_edit_distance_cuda: {name} not contiguous")
     blocks, counter, scratch = 0, None, None
     if W + 1 > MAX_COLS:
-        blocks = _build.long_row_blocks(N, dev)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
+    if W + 1 > MID_COLS:
+        blocks = _build.long_row_blocks(N, dev)
         if W + 1 > _build.LONG_ROW_STRIP_COLS:
             scratch = torch.empty((blocks, L, 8), dtype=torch.int32, device=dev)
     packed = torch.empty((N,), dtype=torch.int32, device=dev)

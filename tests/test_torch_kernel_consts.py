@@ -1,0 +1,132 @@
+"""The CUDA kernels' launch and scratch constants against their Python
+mirrors, on the CPU.
+
+The wrappers (ops/dp_cuda.py, ops/affine_cuda.py, ops/_build.py) size
+the blocks, the row counters and the scratch that csrc/dp.cu and
+csrc/affine.cu index from their own `constexpr`s. A drift between the two
+is an out-of-bounds write on the card, so these tests read the
+constants out of the sources and hold the mirrors to them.
+"""
+
+import os
+import re
+
+import pytest
+
+from snap_tpu_torch.ops import _build, affine_cuda, dp_cuda
+
+
+def _source(name: str) -> str:
+    """csrc/<name>.cu with its macros' line continuations joined."""
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+        return f.read().replace("\\\n", "\n")
+
+
+def _constants(name: str) -> dict:
+    """The namespace-level `constexpr int`s of csrc/<name>.cu, each
+    evaluated from the literals and the constants before it."""
+    out = {}
+    for key, expr in re.findall(r"^constexpr int (\w+) = ([^;,]+);", _source(name),
+                                flags=re.M):
+        out[key] = eval(expr, {"__builtins__": {}}, dict(out))
+    return out
+
+
+def _launches(name: str, kernel: str) -> list[tuple[list[str], str, str]]:
+    """(template arguments, grid, block) of each launch of `kernel` in
+    csrc/<name>.cu."""
+    pat = r"\b" + kernel + r"<([^<>]+)>\s*<<<\(unsigned\)(.+?), (\w+), 0, s>>>"
+    return [([t.strip() for t in targs.split(",")], grid, block)
+            for targs, grid, block in re.findall(pat, _source(name), flags=re.S)]
+
+
+def _cases(name: str, macro: str) -> list[list[str]]:
+    """The arguments of the `macro(...)` lines of csrc/<name>.cu."""
+    return [[a.strip() for a in args.split(",")]
+            for args in re.findall(r"^\s*" + macro + r"\(([\w, ]+)\)\s*$", _source(name),
+                                   flags=re.M)]
+
+
+def test_dp_one_warp_limit():
+    """The one-warp kernel's widest case, 32 lanes of its largest
+    SNAP_DP_CASE, is kWarpCols and dp_cuda.MAX_COLS: past it the wrapper
+    allocates the row counter that the block kernels take rows from."""
+    k = _constants("dp")
+    cases = [int(c) for (c,) in _cases("dp", "SNAP_DP_CASE")]
+    assert cases == sorted(cases)
+    assert 32 * cases[-1] == k["kWarpCols"] == dp_cuda.MAX_COLS
+
+
+def test_dp_mid_route():
+    """Rows of MAX_COLS < W + 1 <= MID_COLS take the mid-width kernel, in
+    one of two families of (threads, columns, blocks per SM) instances,
+    at the first SNAP_DP_MID column count that covers the row: each
+    family's widest instance covers MID_COLS columns, and each instance
+    is built and launched with its family's blocks per SM. Past
+    MID_COLS the wrapper sizes the long rows' blocks and scratch."""
+    k = _constants("dp")
+    family = {"kMidThreads": ("kMidC", "kMidBlocksPerSM"),
+              "kMidFewThreads": ("kMidFewC", "kMidFewBlocksPerSM")}
+    seen = {}
+    for threads, cols, blocks in _cases("dp", "SNAP_DP_MID"):
+        assert blocks == family[threads][1]
+        seen.setdefault(threads, []).append(k[cols] if cols in k else int(cols))
+    assert set(seen) == set(family)
+    for threads, cols in seen.items():
+        assert cols == sorted(cols) and cols[-1] == k[family[threads][0]]
+        assert k[threads] * cols[-1] == k["kMidCols"] == dp_cuda.MID_COLS
+        assert (k["kWarpCols"] + 1 + k[threads] - 1) // k[threads] >= cols[0]
+    assert dp_cuda.MAX_COLS < dp_cuda.MID_COLS <= _build.LONG_ROW_STRIP_COLS
+
+
+@pytest.mark.parametrize("name", ["dp", "affine"])
+def test_long_row_strip_and_blocks(name):
+    """A strip of the 256-thread instance is LONG_ROW_STRIP_COLS wide (the
+    scratch holds one strip edge per block and row), and its blocks per
+    SM are LONG_ROW_BLOCKS_PER_SM (long_row_blocks sizes the grid and the
+    scratch from it)."""
+    k = _constants(name)
+    assert k["kRowThreads"] * k["kRowC"] == k["kRowCols"] == _build.LONG_ROW_STRIP_COLS
+    assert k["kRowBlocksPerSM"] == _build.LONG_ROW_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("name,kernel,launch", [
+    ("dp", "fitting_dp_mid_kernel",
+     (["PP", "CC", "BB"], "min((N + per - 1) / per, sms * BB)", "PP")),
+    ("affine", "pass_xl_row_kernel",
+     (["kMidThreads", "kMidBlocksPerSM"], "min(N, sms * kMidBlocksPerSM)", "kMidThreads")),
+])
+def test_mid_instances_launch_as_built(name, kernel, launch):
+    """The mid-width kernels are launched with the threads they were built
+    for, over at most SMs x the resident blocks per SM of their launch
+    bound blocks, all resident at once (the DP's one-warp route over one
+    block per kMidRowsPerWarp rows)."""
+    k = _constants(name)
+    assert _launches(name, kernel) == [launch]
+    assert k["kMidThreads"] % 32 == 0
+
+
+@pytest.mark.parametrize("name,kernel", [("dp", "fitting_dp_row_kernel"),
+                                         ("affine", "pass_row_kernel")])
+def test_long_row_instance_launch_as_built(name, kernel):
+    """The long-row kernel is launched with the threads and columns of its
+    strip over the wrapper's `blocks` (long_row_blocks), and built for
+    kRowBlocksPerSM resident blocks."""
+    k = _constants(name)
+    assert _launches(name, kernel) == [(["kRowThreads", "kRowC"], "blocks", "kRowThreads")]
+    bound = re.search(r"__launch_bounds__\(P, (\w+)\) " + kernel + r"\(", _source(name))
+    assert bound and bound.group(1) == "kRowBlocksPerSM"
+    assert k["kRowThreads"] % 32 == 0
+
+
+def test_affine_widths_and_plan():
+    """affine_cuda.MAX_L is kMaxCols, the widest xl row: one strip of the
+    xl kernel at its largest column count, kMidC; plan_ints leaves room
+    for kHeader ints after the N x 7 outputs (at a 16-byte boundary), N
+    pass records of 8 ints and N xl or big rows."""
+    k = _constants("affine")
+    assert k["kMaxCols"] == k["kMidThreads"] * k["kMidC"] == affine_cuda.MAX_L
+    assert "wavefront_row<P, kMidC>(a, row, nullptr, xf, red);" in _source("affine")
+    assert k["kXlCols"] < k["kMaxCols"]
+    for n in (1, 2, 3, 4, 1000, 1023):
+        assert affine_cuda.plan_ints(n) == ((7 * n + 3) & ~3) + k["kHeader"] + 9 * n

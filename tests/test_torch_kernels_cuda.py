@@ -38,14 +38,16 @@ def _rows(rng, N, L, W):
                                  (250, 278), (400, 428), (483, 511), (100, 512),
                                  (484, 512), (1500, 1820), (2000, 4200),
                                  (600, 2046), (600, 2047), (600, 2048), (300, 4095),
-                                 (300, 4096), (200, 6200)])
+                                 (300, 4096), (200, 6200), (200, 255), (200, 256),
+                                 (200, 257)])
 def test_dp_kernel_bit_exact(cuda, anchored, L, W):
-    """Up to the one-warp kernel's limit W + 1 = 512, the long-read
-    shapes (pattern L, text window L + 28) of -rl 256, 400 and 483, and
-    past it the long-row kernel (a block a row): 1500 bp at -d 160, W + 1
-    at a 2048-column strip's edge (2047-2049, 4096, 4097) and over three
-    and four strips; plen 0, 1, 2, 7-9, L - 1, L and L + 1 (no harvest
-    row) among random rows."""
+    """Up to the one-warp kernel's limit W + 1 = 256 and across it
+    (W + 1 = 256, 257, 258), the mid-width rows (64 threads a row) up to
+    W + 1 = 512, the long-read shapes (pattern L, text window L + 28) of
+    -rl 256, 400 and 483, and past 512 the long-row kernel (256 threads a
+    row): 1500 bp at -d 160, W + 1 at a 2048-column strip's edge
+    (2047-2049, 4096, 4097) and over three and four strips; plen 0, 1, 2,
+    7-9, L - 1, L and L + 1 (no harvest row) among random rows."""
     from snap_tpu_torch.ops.dp import fitting_edit_distance_core_plain
     from snap_tpu_torch.ops.dp_cuda import fitting_edit_distance_core_cuda
 
@@ -149,6 +151,115 @@ def _dp_bit_exact(args, anchors=(False, True)):
         torch.cuda.synchronize()
         for g, r, field in zip(got, ref, ("packed", "log_prob", "end")):
             assert torch.equal(g.view(torch.int32), r.view(torch.int32)), (anchored, field)
+
+
+# The mid-width rows (csrc/dp.cu W + 1 of 257-512, csrc/affine.cu plen of
+# 257-512): the DP on one warp a row of up to 16 columns a lane when a
+# launch has more than 4 rows per SM, else on 128 threads of up to 4
+# columns; the affine on 64 threads of 5-8 columns.
+
+
+def _resident_and_more(sms):
+    """More rows than the mid-width kernels keep resident at once (at most
+    8 blocks per SM) and than the DP's few-rows route takes, so blocks
+    take the next row when done."""
+    return 16 * sms + 75
+
+
+@pytest.mark.parametrize("W", [256, 287, 288, 428, 479, 511])
+def test_dp_mid_rows_many(cuda, W):
+    """The one-warp mid-width route over more rows than resident blocks, at
+    each column count's edge (W + 1 = 32 C, 32 C + 1) and -rl 400's W =
+    428: plen at 0, 1, L - 1, L, L + 1 and 376 beside random rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(W)
+    L = 400
+    pat, logq, plen, txt = _rows(rng, _resident_and_more(sms), L, W)
+    plen[:12] = [0, 1, L - 1, L, L + 1, 376, 376, 376, 255, 256, 257, 258]
+    _dp_bit_exact([cuda(a) for a in (pat, logq, plen, txt)])
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("W", [256, 257, 428, 511])
+def test_dp_mid_row_ties(cuda, W, many):
+    """Periodic pattern and text with N runs at the mid-width route's
+    edges and at -rl 400's width: the deletion carry (earlier run start)
+    and the answer (smallest end column) tie rules decide; `many` takes
+    the one-warp route, else the 128-thread one."""
+    rng = np.random.default_rng(W)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    N, L = (_resident_and_more(sms) if many else 300), 400
+    pat = np.tile(np.array([0, 1], np.uint8), (N, L // 2))
+    txt = np.tile(np.array([0, 1], np.uint8), (N, (W + 1) // 2))[:, :W]
+    txt[::3, 5:9] = 4
+    pat[::4, 10:12] = 4
+    txt[1::5, :100] = 4
+    txt[2::7, 20:] = np.tile(np.array([0, 0, 1, 1], np.uint8), (1, (W - 20) // 4 + 1))[:, : W - 20]
+    logq = np.full((N, L), np.float32(np.log(0.01)))
+    plen = rng.integers(0, L + 2, N).astype(np.int32)
+    _dp_bit_exact([cuda(a) for a in (np.ascontiguousarray(pat), logq, plen,
+                                     np.ascontiguousarray(txt))])
+
+
+@pytest.mark.parametrize("many", [False, True])
+def test_affine_mid_rows_mixed(cuda, many):
+    """plen 255, 256, 257 and 258 (the short passes' last width and the
+    block kernel's first) in one launch with short rows (0, 1, 40, 41,
+    80, 81, 160, 161) and random ones; tlen 0, 1, plen + 27 and past T;
+    `many` passes the rows that the mid-width kernel keeps resident."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(257)
+    L, T = 400, 428
+    N = _resident_and_more(sms) if many else 303
+    pat, logq, plen, txt = _rows(rng, N, L, T)
+    edges = [255, 256, 257, 258, 0, 1, 40, 41, 80, 81, 160, 161]
+    plen[: 4 * len(edges)] = np.repeat(edges, 4)
+    tlen = np.minimum(plen + 27, T).astype(np.int32)
+    tlen[0 : 4 * len(edges) : 4] = 0
+    tlen[1 : 4 * len(edges) : 4] = 1
+    tlen[2 : 4 * len(edges) : 4] = T + 5
+    sinit = rng.integers(0, 400, N).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)])
+
+
+def test_affine_mid_rows_rl400(cuda):
+    """-rl 400's longest rows, plen 376 and tlen 403, over more rows than
+    the mid-width kernel keeps resident, a quarter of them short."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(376)
+    L, T = 400, 428
+    N = _resident_and_more(sms)
+    pat, logq, plen, txt = _rows(rng, N, L, T)
+    plen[: 3 * N // 4] = 376
+    tlen = np.full(N, 403, np.int32)
+    tlen[3 * N // 4 :] = np.minimum(plen[3 * N // 4 :] + 27, T)
+    sinit = rng.integers(100, 600, N).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)])
+
+
+@pytest.mark.parametrize("many", [False, True])
+def test_affine_mid_row_ties(cuda, many):
+    """Periodic pattern and text, N runs and low score_init in rows of
+    257-512 columns only: the global (later row), local (earlier row,
+    larger column) and F (later run start) tie rules decide in the block
+    kernel."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(11)
+    L, T = 512, 540
+    N = _resident_and_more(sms) if many else 150
+    pat = np.tile(np.array([0, 1], np.uint8), (N, L // 2))
+    txt = np.tile(np.array([0, 1], np.uint8), (N, T // 2))
+    txt[::3, 5:9] = 4
+    pat[::4, 10:12] = 4
+    txt[1::5] = 4
+    txt[2::7, 20:] = np.tile(np.array([0, 0, 1, 1], np.uint8), (1, (T - 20) // 4 + 1))[:, : T - 20]
+    logq = np.full((N, L), np.float32(np.log(0.01)))
+    plen = rng.integers(257, L + 1, N).astype(np.int32)
+    tlen = rng.integers(0, T + 3, N).astype(np.int32)
+    sinit = rng.integers(0, 10, N).astype(np.int32)
+    sinit[::2] = 0
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)],
+                      pens=((1, 4, 6, 1), (2, 6, 8, 2), (1, 1, 0, 1)))
 
 
 # The long-row kernels (csrc/dp.cu, csrc/affine.cu): 256 threads of 8
