@@ -574,9 +574,12 @@ def phase_build(base: dict):
     t0 = time.time()
     per = _build.build_all(names)
     secs = time.time() - t0
+    ptxas = {n: ptxas_functions(_build.BUILD_LOG.get(n, "")) for n in names}
     emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per.items()},
-          "ptxas": {n: ptxas_functions(_build.BUILD_LOG.get(n, "")) for n in names}})
+          "ptxas": ptxas,
+          "spilling": {f"{n}: {f}": v["spill_stores"] for n, fs in ptxas.items()
+                       for f, v in fs.items() if v.get("spill_stores")}})
 
 
 def phase_kernels(calls: dict, base: dict) -> dict:
@@ -1534,20 +1537,29 @@ def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
 
 def launch_spread(calls: dict) -> dict:
     """Per kernel, each recorded launch's rows, widths, and the spread
-    (min, quartiles, max) of plen (and tlen) and the rows past 512
-    pattern columns (the long-row kernels' rows)."""
+    (min, quartiles, max) of plen (and tlen), the rows past 512 pattern
+    columns (the long-row kernels' rows) and, for the affine, past
+    BLOCK_COLS (the block kernel's); for the gapless prescreen its reads,
+    candidates, positions and threads a pair."""
+    from snap_tpu_torch.ops.affine_cuda import BLOCK_COLS
+    from snap_tpu_torch.ops.gapless_cuda import ONE_THREAD_L, split_threads
+
     q = lambda x: np.percentile(x.cpu().numpy(), [0, 25, 50, 75, 100]).tolist()
     out = {}
     for name, launches in calls.items():
-        if name == "gapless_prescreen":
-            continue
         rows = []
         for args, _ in launches:
+            if name == "gapless_prescreen":
+                B, K, L = args[0].shape[0], args[10], args[6].shape[1]
+                rows.append({"B": B, "K": K, "L": L, "threads_a_pair":
+                             1 if L <= ONE_THREAD_L else split_threads(L, B * K)})
+                continue
             pat, plen, text = args[0], args[2], args[3]
             r = {"N": pat.shape[0], "L": pat.shape[1], "W": text.shape[1], "plen": q(plen),
                  "rows_past_512": int((plen > 512).sum())}
             if name == "affine_extend":
                 r["tlen"] = q(args[4])
+                r["rows_past_block_cols"] = int((plen.clamp(0, pat.shape[1]) > BLOCK_COLS).sum())
             rows.append(r)
         out[name] = rows
     return out

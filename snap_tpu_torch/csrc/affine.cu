@@ -33,13 +33,13 @@
 //   (plen, tlen) with a warp bitonic sort and cuts them into passes; a
 //   pass puts 32/G rows of similar size in one warp, G lanes each
 //   (G = 8, 16 or 32), with C = ceil(max plen / G) <= 5 columns per lane
-//   (<= 8 past 160 columns; a template instance per (G, C)), so a lane
-//   computes only columns that a row of its pass has. Persistent single-warp blocks of a second
-//   kernel then take passes one at a time from a shared counter, so a
-//   short pass never holds a block of long ones back.
-// - Rows of more than kXlCols = 256 columns (xl rows, long reads) go
-//   to a list of their own, taken by the block kernel below (see "xl
-//   rows").
+//   (a template instance per (G, C)), so a lane computes only columns
+//   that a row of its pass has. Persistent single-warp blocks of a
+//   second kernel then take passes one at a time from a shared counter,
+//   so a short pass never holds a block of long ones back.
+// - Rows of more than kBlockCols = 128 columns (mid rows up to 256, xl
+//   rows beyond: long reads) go to lists of their own, taken by the
+//   block kernel below (see "mid rows" and "xl rows").
 // - No scan. Within a row's G lanes the DP runs as an anti-diagonal
 //   wavefront: lane k owns columns [kC, kC + C) and works on text row
 //   s - k at step s, so the F carry (value, log-prob, counts, run start)
@@ -94,8 +94,39 @@
 // block has, on what the SMs have left, and take an SM over as its xl
 // blocks finish; a pass warp leaves only once the xl kernel is done.
 // Without that overlap the same launches take 1.55x as long (first -rl
-// 400 batch, H100 80GB HBM3, 700.00 W). ptxas (sm_90a): 160 registers,
-// no spills, 156 bytes of shared memory.
+// 400 batch, H100 80GB HBM3, 700.00 W). ptxas (sm_90a): 161 registers
+// with the mid rows' instances (160 without), no spills, 156 bytes of
+// shared memory.
+//
+// mid rows (129-256 columns: -rl 256's longest, -rl 400's middle). What
+// held them back in the passes: in launches of fewer than 4 rows per
+// resident warp (every -rl 256 and -rl 400 launch: 256-2,048 rows) a
+// pass is one row on 32 lanes of C = 5-8 columns, a wavefront of
+// tlen + 31 (~310) steps of ~8 x 51 operations on one warp, so a launch
+// lasted its longest such row's chain; and the 16 (G, C) instances,
+// inlined into one function held to 128 registers, spilled 240 bytes.
+// They ran at 3.90x their bound on the first -rl 256 batch (H100 80GB
+// HBM3, 700.00 W).
+//
+// This design: a row of more than kBlockCols columns leaves the passes
+// at every launch size for the xl rows' block kernel, 64 threads of
+// C = ceil(plen / 64) = 3-4 columns, so a step's chain is half as long
+// and a row's lanes are all busy. Its rows go longest first: the xl
+// rows, then the mid rows over kMidSplit = 192 columns, then the rest
+// (the plan's mid list). The short passes are its programmatic dependent
+// launch at every L past kBlockCols, so they run beside it. The passes
+// keep their widths (G = 8 up to 40 columns, 16 up to 80, 32 beyond,
+// at most 5 columns a lane); each (G, C) instance is a function of its
+// own, with registers of its own: inlined together, the 13 left spilled
+// 60 bytes; at most 4 columns a lane spilled nothing but made the L = 128
+// step's passes 10% slower. Alternatives measured on the recorded
+// launches of the first -rl 256 and -rl 400 batches, each against the
+// parent in the same call (H100 80GB HBM3, 700.00 W): this design 1.55x
+// and 1.13x faster; a kernel of its own for the mid rows (more resident
+// blocks at fewer registers, 128 threads of 2 columns in launches of few
+// rows) 1.47x and 0.93x, its blocks waiting for the xl kernel's; 128
+// threads a mid row in every launch 1.20x at -rl 256. ptxas (sm_90a):
+// pass_kernel 126 registers, pass_xl_row_kernel 161, no spills.
 //
 // Float arithmetic is __fadd_rn/__fmul_rn in the plain version's order
 // (and -fmad=false); the F log-prob is fadd(rlp, fmul(j - rj - 1,
@@ -111,10 +142,16 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWindow = 32;  // rows sorted and planned together
 constexpr int kPlanWarps = 4;
 constexpr int kPassWarpsPerSM = 16;  // resident at <= 128 registers
-constexpr int kXlCols = 256;         // longer rows: one block a row
-constexpr int kHeader = 8;           // ints before the pass records
-// xl rows (kXlCols < plen <= kMaxCols, pass_xl_row_kernel, one strip):
-// threads a row, the most columns a thread, resident blocks per SM
+// longer rows leave the passes for the block kernel
+// (pass_xl_row_kernel, one strip): mid rows up to kXlCols columns,
+// longer ones xl rows
+constexpr int kBlockCols = 128;
+constexpr int kXlCols = 256;
+// mid rows of more columns are taken before the others
+constexpr int kMidSplit = (kBlockCols + kXlCols) / 2;
+constexpr int kHeader = 12;          // ints before the pass records
+// the block kernel: threads a row, the most columns a thread, resident
+// blocks per SM
 constexpr int kMidThreads = 64;
 constexpr int kMidC = 8;
 constexpr int kMaxCols = kMidThreads * kMidC;  // longer: big rows
@@ -129,13 +166,15 @@ constexpr int kRowBlocksPerSM = 2;
 constexpr int kMaxWidth = 1 << 24;  // columns (as float, exact below)
 
 // out_i holds the N x 7 outputs, then (at a 16-byte boundary) the plan:
-// an 8-int header (long passes planned, short passes planned, passes
-// taken, xl rows planned, xl rows taken, big rows planned, big rows
-// taken), N slots of pass records, 8 ints each: the rows of its
-// segments (-1: none) and (G << 8) | C, and N ints of xl rows (from the
-// front) and big rows (from the back). Long passes fill the slots from
-// the front, short ones from the back; there are never more passes than
-// rows.
+// a kHeader-int header (long passes planned, short passes planned,
+// passes taken, xl rows planned, block rows taken, big rows planned, big
+// rows taken, mid rows planned over kMidSplit columns, the other mid
+// rows planned), N slots of pass records, 8 ints each: the rows of its
+// segments (-1: none) and (G << 8) | C, N ints of xl rows (from the
+// front) and big rows (from the back), and N ints of mid rows (over
+// kMidSplit columns from the front, the others from the back). Long
+// passes fill the slots from the front, short ones from the back; there
+// are never more passes than rows.
 // ops/affine_cuda.py allocates it (plan_ints there).
 __host__ __device__ inline long plan_offset(int N) {
   return ((long)N * 7 + 3) & ~3L;
@@ -177,9 +216,11 @@ __device__ __forceinline__ int clamp_len(int v, int hi) {
 }
 
 // One pass: the 32/G rows of a pass record, G lanes each, C columns per
-// lane. A segment without a row (-1) idles.
+// lane. A segment without a row (-1) idles. Each instance is a function
+// of its own, so that each gets its own registers: inlined together in
+// the pass kernel, the instances of 5 columns a lane spilled 60 bytes.
 template <int G, int C>
-__device__ __forceinline__ void run_pass(const Args& a, const int* rec) {
+__device__ __noinline__ void run_pass(const Args& a, const int* rec) {
   const int lane = threadIdx.x & 31;
   const int seg = lane / G, k = lane % G;
   const int rid = rec[seg];
@@ -384,22 +425,23 @@ __device__ __forceinline__ void run_pass(const Args& a, const int* rec) {
               bl_lp);
 }
 
-// Lanes per row of a pass whose largest row has mp columns: the
-// narrowest G with C = ceil(mp / G) <= 5, so that a lane's columns stay
-// in registers at 16 warps per SM; 32 beyond 160 columns (C <= 8; past
-// kXlCols an xl row, a block each). With fewer than 4 rows per resident
-// warp, every pass takes one row on 32 lanes, so that the few rows still
-// occupy the card.
+// Lanes per row of a pass whose largest row has mp <= kBlockCols
+// columns: the narrowest G with C = ceil(mp / G) <= 5, so that a lane's
+// columns stay in registers at 16 warps per SM; 32 beyond 80 columns
+// (C <= 4). With fewer than 4 rows per resident warp, every pass takes
+// one row on 32 lanes, so that the few rows still occupy the card.
 __device__ __forceinline__ int pass_width(int mp, bool wide) {
   return wide ? 32 : (mp <= 40 ? 8 : (mp <= 80 ? 16 : 32));
 }
 
+// The (G, C) instances of the passes; those no row of at most
+// kBlockCols columns takes compile away.
 __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
   const int G = rec[4] >> 8, C = rec[4] & 0xff;
-#define SNAP_AG_PASS(GG, CC)     \
-  if (G == GG && C == CC) {      \
-    run_pass<GG, CC>(a, rec);    \
-    return;                      \
+#define SNAP_AG_PASS(GG, CC)                              \
+  if (GG * (CC - 1) < kBlockCols && G == GG && C == CC) { \
+    run_pass<GG, CC>(a, rec);                             \
+    return;                                               \
   }
   SNAP_AG_PASS(8, 1)
   SNAP_AG_PASS(8, 2)
@@ -414,20 +456,19 @@ __device__ __forceinline__ void dispatch(const Args& a, const int* rec) {
   SNAP_AG_PASS(32, 3)
   SNAP_AG_PASS(32, 4)
   SNAP_AG_PASS(32, 5)
-  SNAP_AG_PASS(32, 6)
-  SNAP_AG_PASS(32, 7)
-  SNAP_AG_PASS(32, 8)
 #undef SNAP_AG_PASS
 }
 
 // One warp per window of 32 rows: rows without a cell get the initial
-// readouts; the others are sorted by (plen, tlen), largest first, and cut
-// into passes: the next 32/G rows share a warp, G lanes each, with
-// C = ceil(max plen / G) columns per lane (the first row of a pass is
-// its largest). The passes go to the plan in out_i, those over rows of
-// more than 40 columns to the long list, which is taken first, rows of
-// more than kXlCols columns to the xl list and rows of more than
-// kMaxCols to the big list.
+// readouts; the others are sorted by (plen, tlen), largest first. Rows
+// of more than kBlockCols columns go to the block kernels' lists, one
+// each: the mid list up to kXlCols (over kMidSplit from its front, the
+// others from its back), the xl list up to kMaxCols, the big list
+// beyond. The rest are cut into passes: the next 32/G rows share a warp,
+// G lanes each, with C = ceil(max plen / G) columns per lane (the first
+// row of a pass is its largest). The passes go to the plan in out_i,
+// those over rows of more than 40 columns to the long list, which is
+// taken first.
 __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const long r0 =
@@ -461,49 +502,67 @@ __global__ void __launch_bounds__(kPlanWarps * 32) plan_kernel(const Args a) {
   const int srow = (int)r0 + (key & 31);
   const int spl = key >> 15;
   const bool wide = a.N < 4 * a.slots;
-  int nlong = 0, nshort = 0, nxl = 0, nbig = 0;
+  int nlong = 0, nshort = 0, nxl = 0, nbig = 0, nmidl = 0, nmids = 0;
   for (int q = 0; q < nlive;) {
     const int mp = __shfl_sync(kFull, spl, q);
-    ++(mp > kMaxCols ? nbig
-                     : (mp > kXlCols ? nxl : (mp > 40 ? nlong : nshort)));
-    q += 32 / pass_width(mp, wide);
+    if (mp > kBlockCols) {  // one row
+      ++(mp > kMaxCols ? nbig
+                       : (mp > kXlCols ? nxl : (mp > kMidSplit ? nmidl : nmids)));
+      ++q;
+    } else {
+      ++(mp > 40 ? nlong : nshort);
+      q += 32 / pass_width(mp, wide);
+    }
   }
-  int blong = 0, bshort = 0, bxl = 0, bbig = 0;
+  int blong = 0, bshort = 0, bxl = 0, bbig = 0, bmidl = 0, bmids = 0;
   if (lane == 0) {
     if (nlong) blong = atomicAdd(&a.plan[0], nlong);
     if (nshort) bshort = atomicAdd(&a.plan[1], nshort);
     if (nxl) bxl = atomicAdd(&a.plan[3], nxl);
     if (nbig) bbig = atomicAdd(&a.plan[5], nbig);
+    if (nmidl) bmidl = atomicAdd(&a.plan[7], nmidl);
+    if (nmids) bmids = atomicAdd(&a.plan[8], nmids);
   }
   blong = __shfl_sync(kFull, blong, 0);
   bshort = __shfl_sync(kFull, bshort, 0);
   bxl = __shfl_sync(kFull, bxl, 0);
   bbig = __shfl_sync(kFull, bbig, 0);
+  bmidl = __shfl_sync(kFull, bmidl, 0);
+  bmids = __shfl_sync(kFull, bmids, 0);
+  int* const xl = a.plan + kHeader + 8L * a.N;  // then the mid list
   for (int q = 0; q < nlive;) {
     const int mp = __shfl_sync(kFull, spl, q);
+    const int rr = __shfl_sync(kFull, srow, min(q + lane, 31));
+    if (mp > kBlockCols) {  // one row, lane 0's
+      if (lane == 0) {
+        if (mp > kMaxCols)
+          xl[a.N - 1 - bbig] = rr;
+        else if (mp > kXlCols)
+          xl[bxl] = rr;
+        else if (mp > kMidSplit)
+          xl[a.N + bmidl] = rr;
+        else
+          xl[2L * a.N - 1 - bmids] = rr;
+      }
+      ++(mp > kMaxCols ? bbig
+                       : (mp > kXlCols ? bxl : (mp > kMidSplit ? bmidl : bmids)));
+      ++q;
+      continue;
+    }
     const int G = pass_width(mp, wide);
     const int R = 32 / G;
-    const int rr = __shfl_sync(kFull, srow, min(q + lane, 31));
-    if (mp > kMaxCols) {  // one row, lane 0's
-      if (lane == 0) a.plan[kHeader + 8L * a.N + a.N - 1 - bbig] = rr;
-      ++bbig;
-    } else if (mp > kXlCols) {  // G = 32: one row, lane 0's
-      if (lane == 0) a.plan[kHeader + 8L * a.N + bxl] = rr;
-      ++bxl;
-    } else {
-      const long slot = mp > 40 ? blong++ : a.N - 1 - bshort++;
-      int* rec = a.plan + kHeader + 8 * slot;
-      if (lane < 4) rec[lane] = (lane < R && q + lane < nlive) ? rr : -1;
-      if (lane == 4) rec[4] = (G << 8) | ((mp + G - 1) / G);
-    }
+    const long slot = mp > 40 ? blong++ : a.N - 1 - bshort++;
+    int* rec = a.plan + kHeader + 8 * slot;
+    if (lane < 4) rec[lane] = (lane < R && q + lane < nlive) ? rr : -1;
+    if (lane == 4) rec[4] = (G << 8) | ((mp + G - 1) / G);
     q += R;
   }
 }
 
 // Persistent warps, each taking the next pass of the plan (the long
-// ones first) until none is left. Launched as the xl rows' dependent
+// ones first) until none is left. Launched as the block rows' dependent
 // (programmatic dependent launch), they fill the SMs beside those rows;
-// a warp leaves only once the xl rows' kernel is done, so that work
+// a warp leaves only once the block rows' kernel is done, so that work
 // queued after this kernel sees every row written.
 __global__ void __launch_bounds__(32, kPassWarpsPerSM) pass_kernel(const Args a) {
   const int nlong = a.plan[0], total = nlong + a.plan[1];
@@ -841,36 +900,47 @@ __global__ void __launch_bounds__(P, kRowBlocksPerSM) pass_row_kernel(
 }
 
 // Persistent blocks of P threads (B resident per SM), each taking the
-// next xl row of the plan (kXlCols < plen <= P * kMidC columns, one
-// strip) until none is left, at the fewest columns a thread that cover
-// the row: C = ceil(plen / P), so that nearly every thread and lane of
-// the block holds columns. The pass kernel, launched as this kernel's
-// programmatic dependent, starts once every block has.
+// next block row of the plan (kBlockCols < plen <= P * kMidC columns,
+// one strip), longest first: the xl rows, then the mid rows over
+// kMidSplit columns, then the other mid rows, until none is left. A row
+// runs at the fewest columns a thread that cover it: C = ceil(plen / P),
+// so that nearly every thread and lane of the block holds columns (the
+// instances no such row takes compile away). The pass kernel, launched
+// as this kernel's programmatic dependent, starts once every block has.
 template <int P, int B>
 __global__ void __launch_bounds__(P, B) pass_xl_row_kernel(const Args a) {
   __shared__ int xf[2][P / 32][7];
   __shared__ int red[P / 32][5];
   __shared__ int item;
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-  const int total = a.plan[3];
+  const int nxl = a.plan[3], nmidl = a.plan[7];
+  const int total = nxl + nmidl + a.plan[8];
   const int* xl = a.plan + kHeader + 8L * a.N;
+  const int* mid = xl + a.N;
   for (;;) {
     if (threadIdx.x == 0) item = atomicAdd(&a.plan[4], 1);
     __syncthreads();
     const int q = item;
     __syncthreads();  // `item` is read before thread 0 takes the next
     if (q >= total) return;
-    const int row = xl[q];
+    const int row = q < nxl ? xl[q]
+                            : (q < nxl + nmidl ? mid[q - nxl]
+                                               : mid[a.N - 1 - (q - nxl - nmidl)]);
     const int cols = (clamp_len(a.plen[row], a.L) + P - 1) / P;
     // one strip: no scratch
-    if (cols <= 5)
-      wavefront_row<P, 5>(a, row, nullptr, xf, red);
-    else if (cols <= 6)
-      wavefront_row<P, 6>(a, row, nullptr, xf, red);
-    else if (cols <= 7)
-      wavefront_row<P, 7>(a, row, nullptr, xf, red);
-    else
-      wavefront_row<P, kMidC>(a, row, nullptr, xf, red);
+#define SNAP_AG_ROW(CC)                                                   \
+    if (P * CC > kBlockCols && CC < kMidC && cols <= CC) {                \
+      wavefront_row<P, (CC < kMidC ? CC : kMidC)>(a, row, nullptr, xf, red); \
+      continue;                                                           \
+    }
+    SNAP_AG_ROW(2)
+    SNAP_AG_ROW(3)
+    SNAP_AG_ROW(4)
+    SNAP_AG_ROW(5)
+    SNAP_AG_ROW(6)
+    SNAP_AG_ROW(7)
+#undef SNAP_AG_ROW
+    wavefront_row<P, kMidC>(a, row, nullptr, xf, red);
   }
 }
 
@@ -912,11 +982,11 @@ extern "C" int affine_extend_launch(const void* pat, const void* logq,
   if (L > kMaxCols)  // no row is big otherwise
     pass_row_kernel<kRowThreads, kRowC><<<(unsigned)blocks, kRowThreads, 0, s>>>(
         a, (int4*)scratch);
-  if (L <= kXlCols) {  // no row is xl
+  if (L <= kBlockCols) {  // no row leaves the passes
     pass_kernel<<<(unsigned)min(N, slots), 32, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  // the xl rows start first, as many at once as fit; the short passes
+  // the block rows start first, as many at once as fit; the short passes
   // start as soon as all of them have (programmatic dependent launch)
   pass_xl_row_kernel<kMidThreads, kMidBlocksPerSM>
       <<<(unsigned)min(N, sms * kMidBlocksPerSM), kMidThreads, 0, s>>>(a);

@@ -5,8 +5,8 @@ ops.affine.affine_extend_core_plain (the recurrence) and
 `affine_extend_cuda` that of ops.affine.affine_extend_plain (the
 recurrence and the shared torch epilogue finish_extend). CUDA tensors
 launch the kernel; CPU tensors run the plain version. Rows of more than
-256 pattern columns run one block a row (64 threads up to MAX_L columns,
-_build.long_row_blocks blocks of 256 beyond); patterns wider than one strip
+BLOCK_COLS pattern columns run one block a row (64 threads up to MAX_L
+columns, _build.long_row_blocks blocks of 256 beyond); patterns wider than one strip
 (_build.LONG_ROW_STRIP_COLS) also pass each strip's right edge to the
 next through scratch that the wrapper allocates, 8 words per block and
 text row.
@@ -31,14 +31,18 @@ from .affine import (
 from ..constants import AG_GAP_EXTEND, AG_GAP_OPEN, AG_MATCH, AG_MISMATCH
 
 MAX_L = 512  # 64 threads of up to 8 columns a row; longer: big rows
+# csrc/affine.cu kBlockCols: longer rows leave the passes for the block
+# kernel (64 threads a row)
+BLOCK_COLS = 128
+PLAN_HEADER = 12  # csrc/affine.cu kHeader
 
 
 def plan_ints(N: int) -> int:
     """int32 words of the kernel's out_i: the N x 7 outputs, then at a
-    16-byte boundary the device-side pass plan (an 8-int header, up to
-    N records of 8 ints and N xl or big rows; csrc/affine.cu
-    plan_offset)."""
-    return ((7 * N + 3) & ~3) + 8 + 9 * N
+    16-byte boundary the device-side pass plan (a PLAN_HEADER-int header,
+    up to N records of 8 ints, N xl or big rows and N mid rows;
+    csrc/affine.cu plan_offset)."""
+    return ((7 * N + 3) & ~3) + PLAN_HEADER + 10 * N
 
 
 KERNEL = _build.Kernel(

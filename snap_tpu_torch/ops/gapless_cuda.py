@@ -3,7 +3,9 @@
 Same signature as ops.gapless.gapless_prescreen_plain. CUDA tensors
 launch the kernel; CPU tensors run the plain version. The kernel takes
 reads of any length up to MAX_L positions (its log-error sums nest up
-to four levels of 32-term windows), so no read length leaves it.
+to four levels of 32-term windows), so no read length leaves it: up to
+ONE_THREAD_L positions one thread a (read, candidate) pair, beyond that
+split_threads(L, pairs) threads a pair, each whole 32-position windows.
 """
 
 from __future__ import annotations
@@ -14,8 +16,33 @@ import torch
 
 from . import _build
 from .gapless import gapless_prescreen_plain
+from .sums import WINDOW, window_origin
 
 MAX_L = 32 ** 5  # four window levels of ops/sums.py, then <= 32 sums
+# csrc/gapless.cu kOneThreadL, kFillPairs, kMaxSplit, kWindowsPerThread,
+# kMaxChunk
+ONE_THREAD_L = 128
+FILL_PAIRS, MAX_SPLIT, WINDOWS_PER_THREAD, MAX_CHUNK = 1 << 16, 16, 16, 64
+
+
+def split_threads(L: int, pairs: int) -> int:
+    """Threads a pair (warps a block) of the split kernel at L >
+    ONE_THREAD_L positions over `pairs` (read, candidate) pairs:
+    FILL_PAIRS / pairs, so that a launch fills the card, as a power of two
+    from 1 to MAX_SPLIT, and fewer than twice ops/sums.py's first-level
+    windows. A block sums split_chunk(split) windows at a time."""
+    windows = (L + window_origin(L) + WINDOW - 1) // WINDOW
+    split = MAX_SPLIT
+    while split > 1 and (split * pairs > FILL_PAIRS or split >= 2 * windows):
+        split //= 2
+    return split
+
+
+def split_chunk(split: int) -> int:
+    """First-level windows the split kernel's block stages and sums at a
+    time: WINDOWS_PER_THREAD a thread, at most MAX_CHUNK."""
+    return min(WINDOWS_PER_THREAD * split, MAX_CHUNK)
+
 
 KERNEL = _build.Kernel(
     "gapless", "gapless_prescreen_launch",

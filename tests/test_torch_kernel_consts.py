@@ -3,9 +3,12 @@ mirrors, on the CPU.
 
 The wrappers (ops/dp_cuda.py, ops/affine_cuda.py, ops/_build.py) size
 the blocks, the row counters and the scratch that csrc/dp.cu and
-csrc/affine.cu index from their own `constexpr`s. A drift between the two
-is an out-of-bounds write on the card, so these tests read the
-constants out of the sources and hold the mirrors to them.
+csrc/affine.cu index from their own `constexpr`s, and ops/gapless_cuda.py
+and ops/affine_cuda.py name the routes that csrc/gapless.cu and
+csrc/affine.cu choose by their thresholds. A drift between the two is an
+out-of-bounds write on the card or a route the tests miss, so these
+tests read the constants out of the sources and hold the mirrors to
+them.
 """
 
 import os
@@ -13,7 +16,7 @@ import re
 
 import pytest
 
-from snap_tpu_torch.ops import _build, affine_cuda, dp_cuda
+from snap_tpu_torch.ops import _build, affine_cuda, dp_cuda, gapless_cuda
 
 
 def _source(name: str) -> str:
@@ -123,10 +126,72 @@ def test_affine_widths_and_plan():
     """affine_cuda.MAX_L is kMaxCols, the widest xl row: one strip of the
     xl kernel at its largest column count, kMidC; plan_ints leaves room
     for kHeader ints after the N x 7 outputs (at a 16-byte boundary), N
-    pass records of 8 ints and N xl or big rows."""
+    pass records of 8 ints, N xl or big rows and N mid rows."""
     k = _constants("affine")
     assert k["kMaxCols"] == k["kMidThreads"] * k["kMidC"] == affine_cuda.MAX_L
     assert "wavefront_row<P, kMidC>(a, row, nullptr, xf, red);" in _source("affine")
     assert k["kXlCols"] < k["kMaxCols"]
+    assert k["kHeader"] == affine_cuda.PLAN_HEADER and k["kHeader"] % 4 == 0
     for n in (1, 2, 3, 4, 1000, 1023):
-        assert affine_cuda.plan_ints(n) == ((7 * n + 3) & ~3) + k["kHeader"] + 9 * n
+        assert affine_cuda.plan_ints(n) == ((7 * n + 3) & ~3) + k["kHeader"] + 10 * n
+
+
+def _pass_width(mp: int, wide: bool) -> int:
+    """csrc/affine.cu pass_width: lanes a row of a pass whose largest row
+    has mp columns."""
+    return 32 if wide else (8 if mp <= 40 else (16 if mp <= 80 else 32))
+
+
+def test_affine_block_route():
+    """Rows of more than affine_cuda.BLOCK_COLS (kBlockCols) columns leave
+    the passes for the block kernel; every (G, C) a pass of shorter rows
+    takes, wide or not, has its SNAP_AG_PASS instance, no instance takes
+    more than 5 columns a lane (the passes' 128 registers) and each is a
+    function of its own; every block row's C = ceil(plen / kMidThreads)
+    has its SNAP_AG_ROW case or is kMidC, and the mid list splits inside
+    the mid rows."""
+    k = _constants("affine")
+    assert k["kBlockCols"] == affine_cuda.BLOCK_COLS
+    assert 80 <= k["kBlockCols"] < k["kMidSplit"] < k["kXlCols"] < k["kMaxCols"]
+    passes = {(int(g), int(c)) for g, c in _cases("affine", "SNAP_AG_PASS")
+              if int(g) * (int(c) - 1) < k["kBlockCols"]}
+    need = {(g, (mp + g - 1) // g) for wide in (False, True)
+            for mp in range(1, k["kBlockCols"] + 1) for g in [_pass_width(mp, wide)]}
+    assert need == passes and max(c for _, c in passes) <= 5
+    assert "__device__ __noinline__ void run_pass(" in _source("affine")
+    rows = {int(c) for (c,) in _cases("affine", "SNAP_AG_ROW")}
+    P = k["kMidThreads"]
+    for plen in range(k["kBlockCols"] + 1, k["kMaxCols"] + 1):
+        c = (plen + P - 1) // P
+        assert c == k["kMidC"] or (c in rows and c < k["kMidC"] and P * c > k["kBlockCols"])
+    assert "if (L <= kBlockCols) {  // no row leaves the passes" in _source("affine")
+
+
+def test_gapless_routes():
+    """The one-thread kernel up to gapless_cuda.ONE_THREAD_L positions;
+    past it the split kernel at split_threads(L, pairs) threads a pair
+    (warps a block), a power of two up to kMaxSplit with an instance
+    each, whose shared memory (two stages of words and the window sums of
+    a chunk) fits the 48 KB a launch takes without asking; reads up to
+    MAX_L positions (kMaxLevels window levels)."""
+    k = _constants("gapless")
+    src = _source("gapless")
+    assert k["kOneThreadL"] == gapless_cuda.ONE_THREAD_L
+    assert (k["kMaxSplit"], k["kWindowsPerThread"], k["kMaxChunk"]) == (
+        gapless_cuda.MAX_SPLIT, gapless_cuda.WINDOWS_PER_THREAD, gapless_cuda.MAX_CHUNK)
+    assert "constexpr long kFillPairs = 1L << 16;" in src and gapless_cuda.FILL_PAIRS == 1 << 16
+    assert gapless_cuda.MAX_L == 32 ** (k["kMaxLevels"] + 1)
+    built = {int(n) for (n,) in _cases("gapless", "SNAP_GL_SPLIT")}
+    assert built == {1 << i for i in range(k["kMaxSplit"].bit_length())}
+    for L in (129, 256, 400, 1500, 20000):
+        for pairs in (1, 1000, 4096, 1 << 14, 1 << 17):
+            assert gapless_cuda.split_threads(L, pairs) in built
+    for G in sorted(built):
+        chunk = gapless_cuda.split_chunk(G)
+        assert chunk == min(k["kWindowsPerThread"] * G, k["kMaxChunk"]) >= G
+        assert (2 * (2 * chunk + 1) * 33 + chunk * 32 + G * 32) * 4 <= 48 * 1024
+        assert 32 * G <= 1024
+    assert "const int chunk = min(kWindowsPerThread * split, kMaxChunk);" in src
+    assert "const size_t smem = (size_t)(2 * (2 * chunk + 1) * 33 + chunk * 32 + split * 32) * 4;" in src
+    assert "__launch_bounds__(32 * G) gapless_split_kernel(" in src
+    assert "gapless_split_kernel<GG><<<blocks, 32 * GG, smem, s>>>(" in src

@@ -117,7 +117,8 @@ def test_affine_kernel_long_rows(cuda, L, many):
 
 
 @pytest.mark.parametrize("many", [False, True])
-@pytest.mark.parametrize("L,T", [(80, 110), (400, 430), (512, 540), (1500, 1540)])
+@pytest.mark.parametrize("L,T", [(80, 110), (256, 284), (400, 430), (512, 540),
+                                 (1500, 1540)])
 def test_affine_kernel_ties(cuda, many, L, T):
     """Periodic pattern and text, N runs and low score_init: many equal
     scores, so the global (later row), local (earlier row, larger
@@ -199,6 +200,35 @@ def test_dp_mid_row_ties(cuda, W, many):
     plen = rng.integers(0, L + 2, N).astype(np.int32)
     _dp_bit_exact([cuda(a) for a in (np.ascontiguousarray(pat), logq, plen,
                                      np.ascontiguousarray(txt))])
+
+
+@pytest.mark.parametrize("size", ["few", "mid", "many"])
+def test_affine_block_rows_l256(cuda, size):
+    """-rl 256's width (L = 256): rows of 120-256 columns, the mid rows'
+    threshold BLOCK_COLS - 1, BLOCK_COLS, BLOCK_COLS + 1 and the mid
+    list's split (191-193) beside rows of fewer than 40 columns; tlen 0,
+    1, plen + 27 and past T. "few" rows (at most 4 an SM) run the mid
+    rows on 128 threads, more on 64; "many" passes 4 rows per resident
+    pass warp, so the passes share warps (G = 8, 16), else every pass is
+    one row on 32 lanes."""
+    from snap_tpu_torch.ops.affine_cuda import BLOCK_COLS
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    N, seed = {"few": (303, 1), "mid": (16 * sms + 75, 2), "many": (64 * sms + 75, 3)}[size]
+    rng = np.random.default_rng(seed)
+    L, T = 256, 284
+    pat, logq, plen, txt = _rows(rng, N, L, T)
+    plen[:] = np.where(rng.random(N) < 0.5, rng.integers(120, L + 1, N),
+                       rng.integers(0, 40, N))
+    edges = [BLOCK_COLS - 1, BLOCK_COLS, BLOCK_COLS + 1, 191, 192, 193, 255, 256,
+             0, 1, 39, 40]
+    plen[: 4 * len(edges)] = np.repeat(edges, 4)
+    tlen = np.minimum(plen + 27, T).astype(np.int32)
+    tlen[0 : 4 * len(edges) : 4] = 0
+    tlen[1 : 4 * len(edges) : 4] = 1
+    tlen[2 : 4 * len(edges) : 4] = T + 5
+    sinit = rng.integers(0, 300, N).astype(np.int32)
+    _affine_bit_exact([cuda(a) for a in (pat, logq, plen, txt, tlen, sinit)])
 
 
 @pytest.mark.parametrize("many", [False, True])
@@ -339,15 +369,12 @@ def test_affine_kernel_20kb(cuda):
                       pens=((1, 4, 6, 1),))
 
 
-@pytest.mark.parametrize("L", [40, 100, 128, 1025, 1500, 20000])
-def test_gapless_kernel(cuda, L):
-    """Reads of one window level (L <= 1024) and of two or three (the
-    sums of ops/sums.py nest a level per 32-fold)."""
+def _gapless_bit_exact(cuda, L, B, K, seed):
     from snap_tpu_torch.ops.gapless import gapless_prescreen_plain
     from snap_tpu_torch.ops.gapless_cuda import gapless_prescreen_cuda
 
-    rng = np.random.default_rng(L)
-    B, K, PW = (200 if L <= 1500 else 24), 16, (L + 15) // 16
+    rng = np.random.default_rng(seed)
+    PW = (L + 15) // 16
     w = lambda *s: rng.integers(-(1 << 31), 1 << 31, s, dtype=np.int64).astype(np.int32)
     even = np.int32(0x55555555)
     arrays = (
@@ -362,6 +389,37 @@ def test_gapless_kernel(cuda, L):
     d, lp = gapless_prescreen_cuda(*args, K, PW)
     rd, rlp = gapless_prescreen_plain(*args, K, PW)
     assert torch.equal(d, rd)
-    # bit for bit: the kernel skips only +0.0 terms, and no partial sum
-    # of ln P(error) values is -0.0
+    # bit for bit: up to ONE_THREAD_L positions the kernel skips only
+    # +0.0 terms, and no partial sum of ln P(error) values is -0.0; past
+    # it, it adds the plain version's terms in its order
     assert torch.equal(lp.view(torch.int32), rlp.view(torch.int32))
+
+
+@pytest.mark.parametrize("L", [40, 100, 128, 129, 256, 257, 400, 1024, 1025, 1500,
+                               20000])
+def test_gapless_kernel(cuda, L):
+    """Reads of one window level (L <= 1024) and of two or three (the
+    sums of ops/sums.py nest a level per 32-fold): one thread a pair up
+    to 128 positions, the split kernel past it (8-16 threads a pair for
+    these 3,200 pairs, by the windows); lo (the zeros padded in front of
+    the windows) 15 at 129, 257 and 1025, 8 at 400, 0 at 256 and 1024."""
+    _gapless_bit_exact(cuda, L, 200 if L <= 1500 else 24, 16, L)
+
+
+@pytest.mark.parametrize("B", [32, 64, 128])
+@pytest.mark.parametrize("L", [400, 1500])
+def test_gapless_kernel_many_pairs(cuda, L, B):
+    """K = 512 candidates a read, as -rl 400's largest launches have:
+    16,384-65,536 pairs, so the split kernel takes 4, 2 and 1 threads a
+    pair (gapless_cuda.split_threads), with 64 windows a chunk and
+    fewer."""
+    _gapless_bit_exact(cuda, L, B, 512, L + B)
+
+
+@pytest.mark.parametrize("L", [129, 256, 400, 1500])
+def test_gapless_kernel_few_pairs(cuda, L):
+    """Two reads of 16 and of 64 candidates: the split kernel's last block
+    holds lanes past the last pair, which take part in the shuffles with
+    no windows."""
+    _gapless_bit_exact(cuda, L, 2, 16, L + 2)
+    _gapless_bit_exact(cuda, L, 2, 64, L + 3)
