@@ -88,7 +88,8 @@ Phases, each printing one JSON line:
   options  `single -om 3 -omax 2` and `single -dp 0.1` on the first 16384
            reads of the sam phase: every read takes the non-fast
            (two-phase) path (branches' non_fast), reads/s, accuracy.
-  bam      `single -so` to a .bam on the sam phase's reads, in memory and
+  bam      `single -so` to a .bam on the first 32768 of the sam phase's
+           reads, in memory and
            through the -sm spill: the .bai is there, the port's BAM
            reader finds the records sorted, with the SAM run's count and
            names, the spill gives the same record bytes; the host's
@@ -100,18 +101,37 @@ Phases, each printing one JSON line:
            and every kernel launched; shows the records that differ
            from the -t 1 run beside both runs' dp_overflow reads and
            phase-C steps (a batch's make-up decides both).
-  card_vs_cpu  the first reads of each long and options run (256; 16
-           at 1500 bp; 512) and of the -t 4 run (3072), run on the card
-           in their phase, again on the CPU: at most 2 records
-           differing, in MAPQ +-1 only. The CPU runs come last, so that
-           the index is loaded to host memory once.
+  mesh     the multi-device path on one card (parallel/mesh.py):
+           `single -ishards 2` on 16384 of the sam phase's reads (one
+           card makes it a 1 x 1 mesh, as in snap_tpu: the resharded
+           index, the monolithic mesh step, its dp_overflow redo), an
+           untimed run whose first 4 steps' and redo paths' launches are
+           replayed bit for bit, then a timed run (reads/s);
+           align_winners_sharded on a data = 1 x index = 2 mesh of
+           cuda:0 twice on one 16384-read batch, every launch replayed,
+           its winners on the first 1024 reads equal to the CPU mesh's
+           bit for bit; `paired -ishards 2` on 2048 pairs, its first
+           batches' launches replayed. Fails unless every kernel
+           launched on the mesh path.
+  apps     `daemon` on a Unix socket in a thread, on the card: `single`
+           sent through `command` writes the direct run's SAM; `roc` on
+           it; `tofastq` gives back the FASTQ's bytes and `single` on
+           them the same records; `depth` on a 200 kbp index.
+  card_vs_cpu  the first reads of each long and options run (128; 16
+           at 1500 bp; 512), of the -t 4 run (1024) and of the mesh
+           phase's `single -ishards 2` (512) and `paired -ishards 2`
+           (256 pairs), run on the card in their phase, again on the
+           CPU: at most 2 records differing, in MAPQ +-1 only. The CPU
+           runs come last, so that the index is loaded to host memory
+           once.
 Then a `seconds` line (each phase's wall seconds), one {"kernels": [...]}
 line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
 in the timed paired run; the sums over the launches of one 16384-read
 phase-C step of its device time, its per-call time, its plain version's
-time and its bound; the launches replayed; each long and options run's
-launches; the sums over the first batch's launches at -rl 256, -rl 400
-and 1500 bp), the card's name and power limit, and as the last line
+time and its bound; the launches replayed; each long, options and mesh
+run's launches and the daemon's; the sums over the first batch's
+launches at -rl 256, -rl 400 and 1500 bp), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -1119,23 +1139,32 @@ def run_single(argv: list[str], device: str = "cuda", phase: str = "sam",
     redo paths' pipeline calls and in `owners`."""
     from snap_tpu_torch.align import pipeline, single
 
+    from snap_tpu_torch.parallel import mesh
+
     owners = list(owners or [])
     owners += [(single.SingleEndAligner, n) for n in TIMED_METHODS]
     owners += [(pipeline, n) for n in TIMED_PIPELINE]
-    steps = {"phase_c": 0, "without_phase_c": 0}
-    step = pipeline.align_winners_device
+    steps = {"phase_c": 0, "without_phase_c": 0, "mesh": 0}
+    step, mesh_step = pipeline.align_winners_device, mesh.align_winners_sharded
 
     def counted_step(*a, **kw):
         steps["phase_c" if kw.get("phase_c") else "without_phase_c"] += 1
         return step(*a, **kw)
 
+    def counted_mesh_step(*a, **kw):
+        steps["mesh"] += 1
+        return mesh_step(*a, **kw)
+
     pipeline.align_winners_device = counted_step
+    mesh.align_winners_sharded = counted_mesh_step
     try:
-        run, _, acc = run_cli(phase, argv, single.SingleEndAligner, "align_file",
-                              owners, device)
+        run, aligner, acc = run_cli(phase, argv, single.SingleEndAligner, "align_file",
+                                    owners, device)
     finally:
         pipeline.align_winners_device = step
+        mesh.align_winners_sharded = mesh_step
     run["steps"] = steps
+    run["mesh"] = None if aligner.mesh is None else dict(aligner.mesh.shape)
     step_s = acc["_submit"][0] + acc["_fetch_winners"][0]
     run.update({
         "step_s": step_s,
@@ -1360,7 +1389,7 @@ def paired_summary(path: str) -> dict:
     return out
 
 
-def run_paired(argv: list[str], device: str = "cuda") -> dict:
+def run_paired(argv: list[str], device: str = "cuda", phase: str = "paired") -> dict:
     """One `paired` command through run_cli, with the host's seconds in
     the device intersection, the batch's scoring and the redo paths, the
     pair counters of AlignerStats, and the card's peak memory in the
@@ -1372,7 +1401,7 @@ def run_paired(argv: list[str], device: str = "cuda") -> dict:
     cls = paired_driver.PairedEndAligner
     owners = [(cls, n) for n in PAIRED_METHODS] + [(pipeline, n) for n in PAIRED_PIPELINE]
     torch.cuda.reset_peak_memory_stats()
-    run, aligner, acc = run_cli("paired", argv, cls, "align_files", owners, device)
+    run, aligner, acc = run_cli(phase, argv, cls, "align_files", owners, device)
     wall = run["wall_s"]
     sec = lambda *names: sum(acc.get(n, [0.0])[0] for n in names)
     parts = {"intersect": sec("_device_intersect"), "scoring": sec(*PAIRED_PIPELINE),
@@ -1381,6 +1410,7 @@ def run_paired(argv: list[str], device: str = "cuda") -> dict:
     run["status"].update(aligned_as_pairs=st.aligned_as_pairs,
                          intersect_wide_pairs=st.intersect_wide_pairs,
                          intersect_overflow_pairs=st.intersect_overflow_pairs)
+    run["mesh"] = None if aligner.mesh is None else dict(aligner.mesh.shape)
     run.update({
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         **{f"{k}_s": v for k, v in parts.items()},
@@ -1478,14 +1508,15 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
 
 LONG_RUNS = ((250, 256, 16_384), (400, 400, 8_192))  # read length, -rl, reads
 LONG_RECORD_BATCHES = 4        # batches of each recording run whose launches are replayed
-LONG_CHECK_READS = 256         # card-vs-CPU SAM
+LONG_CHECK_READS = 128         # card-vs-CPU SAM
 XL_LEN, XL_READS, XL_BATCH, XL_CHECK_READS = 1500, 256, 64, 16
 XL_REPLAY_BATCHES = 1          # batches of the 1500 bp run whose launches are replayed
 XL_OPTS = ["-rl", "1500", "-d", "160", "-i", "200", "-dp", "0.15", "-mrl", "100"]
 OPTION_RUNS = {"om": ["-om", "3", "-omax", "2"], "dp": ["-dp", "0.1"]}
 OPTIONS_READS = 16_384
 OPTIONS_CHECK_READS = 512
-BAM_SPILL_GB = "0.004"         # -sm: 4 MiB of records a sorted block, ~5 blocks
+BAM_READS = 32_768             # the first half of the sam phase's reads
+BAM_SPILL_GB = "0.002"         # -sm: 2 MiB of records a sorted block, ~5 blocks
 MIN_WITHIN_30BP = 0.98         # share of primary MAPQ >= 10 records near their origin
 
 
@@ -1674,8 +1705,8 @@ def bam_body(path: str) -> bytes:
 
 
 def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
-    """`single -so` to a .bam on the sam phase's reads, in memory and
-    through the -sm spill: the .bai is written, the port's BAM reader
+    """`single -so` to a .bam on the first BAM_READS of the sam phase's
+    reads, in memory and through the -sm spill: the .bai is written, the port's BAM reader
     finds the records sorted, with the SAM run's count and names, and
     the spill gives the in-memory run's record bytes. The host's seconds
     in OutputWriter.close (sort, duplicate marking, BAM and .bai write)
@@ -1686,12 +1717,15 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
 
     idx_dir = ctx["idx_dir"]
     _load_index_cached(idx_dir, "cuda")
-    sam_names = sorted(ln.split(b"\t", 1)[0] for ln in sam_records(sam["sam"]))
+    reads, quals, names = sam["reads"]
+    fq = os.path.join(workdir, "bam_reads.fq")
+    write_fastq(fq, reads[:BAM_READS], quals[:BAM_READS], names[:BAM_READS])
+    sam_names = sorted(names[:BAM_READS])
     owners = [(output.OutputWriter, "close"), (output.OutputWriter, "_spill_block")]
     res = {}
     for name, extra in (("sorted", []), ("spill", ["-sm", BAM_SPILL_GB])):
         out = os.path.join(workdir, f"{name}.bam")
-        run = run_single(["single", idx_dir, sam["fq"], "-o", out, "-so", *extra],
+        run = run_single(["single", idx_dir, fq, "-o", out, "-so", *extra],
                          phase="bam", owners=owners)
         if not os.path.exists(out + ".bai"):
             fail("bam", f"{name}: no .bai beside the BAM")
@@ -1700,14 +1734,14 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
         if keys != sorted(keys):
             fail("bam", f"{name}: the BAM records are not sorted")
         if sorted(r.qname for r in recs) != sam_names:
-            fail("bam", f"{name}: {len(recs)} BAM records, not the SAM run's {len(sam_names)} names")
+            fail("bam", f"{name}: {len(recs)} BAM records, not the {len(sam_names)} reads' names")
         hs = run["host_seconds"]
         spills = hs.get("_spill_block", {}).get("calls", 0) + hs.get(
             "close/_spill_block", {}).get("calls", 0)
         if name == "spill" and spills < 2:
             fail("bam", f"the -sm {BAM_SPILL_GB} run spilled {spills} blocks")
         res[name] = {
-            "wall_s": run["wall_s"], "reads_per_s": SAM_READS / run["wall_s"],
+            "wall_s": run["wall_s"], "reads_per_s": BAM_READS / run["wall_s"],
             "records": len(recs), "duplicates": sum(1 for r in recs if r.flag & 0x400),
             "unmapped": sum(1 for r in recs if r.ref_id < 0),
             "sort_and_write_s": hs.get("close", {}).get("s"),
@@ -1721,12 +1755,12 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
     bai = {k: open(os.path.join(workdir, f"{k}.bam.bai"), "rb").read() for k in res}
     res["spill_same_record_bytes"] = True
     res["spill_same_bai_bytes"] = bai["spill"] == bai["sorted"]
-    emit({"phase": "bam", "ok": True, "reads": SAM_READS, **res})
+    emit({"phase": "bam", "ok": True, "reads": BAM_READS, **res})
     return res
 
 
 THREADS = 4
-THREADS_CHECK_READS = 3072     # card-vs-CPU SAM of -t 4
+THREADS_CHECK_READS = 1024     # card-vs-CPU SAM of -t 4
 
 
 def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
@@ -1776,13 +1810,334 @@ def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
                        THREADS_CHECK_READS)]
 
 
+# -------------------------------------------------------------- multi-device
+
+CARD = "cuda"                  # the mesh and apps phases' device (the cached index's)
+MESH_READS = 16_384            # `single -ishards 2` and the direct index = 2 step
+MESH_RECORD_STEPS = 4          # mesh steps of the recording run whose launches are replayed
+MESH_CHECK_READS = 1024        # card-vs-CPU winners of the direct index = 2 step
+MESH_SAM_CHECK_READS = 512     # card-vs-CPU SAM of `single -ishards 2`
+MESH_PAIRS = 2_048             # `paired -ishards 2`
+MESH_CHECK_PAIRS = 256         # card-vs-CPU SAM of it
+
+
+def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, list]:
+    """The multi-device path on one card. (1) `single -ishards 2` on the
+    first MESH_READS reads of the sam phase: one device makes it a 1 x 1
+    mesh (snap_tpu's rule), so the resharded index, the monolithic mesh
+    step (parallel.mesh.align_winners_sharded) and its dp_overflow redo
+    (align_tier1_sharded) run; an untimed run keeps the launches of its
+    first MESH_RECORD_STEPS steps and of its redo paths, replayed bit
+    for bit, then a timed run (reads/s). (2) align_winners_sharded
+    called directly on a data = 1 x index = 2 mesh of cuda:0 twice (the
+    index resharded into 2 tables, the K axis merged across them), one
+    MESH_READS batch, every launch replayed; its winners on the first
+    MESH_CHECK_READS reads equal the CPU mesh's bit for bit. (3) `paired
+    -ishards 2` on MESH_PAIRS pairs, its first batches' launches
+    replayed. Returns the runs' launches and replays, and the
+    card-vs-CPU SAM checks of (1) and (3) still to run."""
+    import torch
+
+    from snap_tpu_torch.align import paired_driver
+    from snap_tpu_torch.align.pipeline import AlignParams, HostWinners, align_winners_device
+    from snap_tpu_torch.cli import _load_index_cached
+    from snap_tpu_torch.index.build import reshard_index
+    from snap_tpu_torch.parallel import mesh
+
+    idx_dir = ctx["idx_dir"]
+    reads, quals, names = sam["reads"]
+    n = MESH_READS
+    fq = os.path.join(workdir, "mesh.fq")
+    write_fastq(fq, reads[:n], quals[:n], names[:n])
+    cached = _load_index_cached(idx_dir, "cuda")
+    runs, replays, checks = {}, {}, []
+
+    # (1) single -ishards 2: a 1 x 1 mesh on one card
+    argv_of = lambda f, o: ["single", idx_dir, f, "-o", o, "-ishards", "2"]
+    step_calls = {name: [] for name in KERNEL_SOURCES}
+    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(step_calls, inside={(mesh, "align_winners_sharded"): MESH_RECORD_STEPS}), \
+            recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
+        rec = run_single(argv_of(fq, os.path.join(workdir, "mesh_rec.sam")), phase="mesh")
+    replays["single_step"] = replay_launches(step_calls, "mesh steps", "mesh")
+    replays["single_redo"] = replay_launches(redo_calls, "mesh redo paths", "mesh")
+    out = os.path.join(workdir, "mesh.sam")
+    run = run_single(argv_of(fq, out), phase="mesh")
+    if run["mesh"] != {"data": 1, "index": 1} or run["steps"]["mesh"] != n // 1024:
+        fail("mesh", f"-ishards 2 on one card ran mesh {run['mesh']}, steps {run['steps']}")
+    check_run("mesh", "single_ishards2", run, out, n, list(KERNEL_SOURCES))
+    sam_run = sam["run"]
+    runs["single_ishards2"] = {
+        "launches": run["launches"], "reads_per_s": run["reads_per_s"],
+        "wall_s": run["wall_s"], "step_s": run["step_s"],
+        "dp_overflow": run["branches"].get("dp_overflow", 0),
+        "sam_phase_reads_per_s": sam_run["reads_per_s"],
+        "sam_phase_step_s_per_1024_reads": sam_run["step_s"] * 1024 / SAM_READS,
+        "step_s_per_1024_reads": run["step_s"] * 1024 / n,
+    }
+    emit({"phase": "mesh", "ok": True, "run": "single_ishards2", "reads": n,
+          "timed_run": run, "recorded_run": {"wall_s": rec["wall_s"],
+                                             "launches": rec["launches"]},
+          "replays": {k: replays[k] for k in ("single_step", "single_redo")}})
+    checks.append(card_check("mesh", "mesh_single", argv_of, workdir, reads, quals, names,
+                             MESH_SAM_CHECK_READS))
+
+    # (2) align_winners_sharded on data = 1 x index = 2, cuda:0 twice
+    t0 = time.time()
+    arrays = reshard_index({"seed_len": cached.seed_len, "max_probe": cached.max_probe,
+                            **cached._host_arrays}, 2)
+    reshard_s = time.time() - t0
+    mesh2 = mesh.make_mesh(1, 2, [torch.device(CARD)] * 2)
+    bases_g = np.asarray(cached.genome_meta.bases)
+    sh = mesh.sharded_device_index(arrays, bases_g, mesh2)
+    params = AlignParams(seed_len=cached.seed_len,
+                         max_probe=max(cached.max_probe, arrays["max_probe"]))
+    fas = cached.genome_meta.first_alt_start()
+    b = np.full((n, MAX_LEN), 4, np.uint8)
+    q = np.zeros((n, MAX_LEN), np.uint8)
+    b[:, :READ_LEN], q[:, :READ_LEN] = reads[:n], quals[:n]
+    lens = np.full(n, READ_LEN, np.int32)
+    dev = torch.device(CARD)
+    tb, tq, tl = (torch.from_numpy(x).to(dev) for x in (b, q, lens))
+    def step(bb=tb, qq=tq, ll=tl, d=sh, m=mesh2):
+        return mesh.align_winners_sharded(d, bb, qq, ll, fas, params, m)[0]
+
+    calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(calls):
+        packed, launches = counted(step)
+    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
+    if missing:
+        fail("mesh", f"index = 2 step: no launch of {missing}: {launches}")
+    replays["index2_step"] = replay_launches(calls, "index = 2 mesh step", "mesh")
+    del calls
+
+    def wall(fn, reps=3):  # median seconds of fn() to its winners on the host
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn().cpu()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    step_wall = wall(step)
+    # the same batch through the flat index's full-depth step (the one
+    # index, K = 16): what the second index shard adds
+    flat_wall = wall(lambda: align_winners_device(
+        cached.device, tb, tq, tl, torch.tensor(fas, device=dev),
+        AlignParams(seed_len=cached.seed_len, max_probe=cached.max_probe))[0])
+    w = HostWinners(packed)
+    c = MESH_CHECK_READS
+    sl = lambda t: t[:c].contiguous()
+    card = step(sl(tb), sl(tq), sl(tl)).cpu().numpy()
+    t0 = time.time()
+    mesh_cpu = mesh.make_mesh(1, 2, [torch.device("cpu")] * 2)
+    sh_cpu = mesh.sharded_device_index(arrays, bases_g, mesh_cpu)
+    cpu = step(sl(tb).cpu(), sl(tq).cpu(), sl(tl).cpu(), sh_cpu, mesh_cpu).numpy()
+    cpu_s = time.time() - t0
+    rows = np.flatnonzero((card != cpu).any(axis=1))
+    if rows.size:
+        fail("mesh", f"index = 2 step: {rows.size} of {c + 1} winner rows differ between "
+                     f"card and CPU, first {rows[:5].tolist()}")
+    runs["index2_step"] = {"launches": launches, "reads_per_s": n / step_wall,
+                           "flat_full_depth_reads_per_s": n / flat_wall}
+    emit({"phase": "mesh", "ok": True, "run": "index2_step", "reads": n,
+          "mesh": {**mesh2.shape, "devices": [str(d) for d in mesh2.devices[0]]},
+          "reshard_s": reshard_s, "max_probe": params.max_probe,
+          "flat_max_probe": cached.max_probe,
+          "shard_table_bytes": int(arrays["table"][0].nbytes),
+          "shard_hits": [int(x) for x in arrays["hits"].shape],
+          "launches": launches, "step_wall_s": step_wall, "reads_per_s": n / step_wall,
+          "flat_full_depth_step_wall_s": flat_wall, "flat_full_depth_reads_per_s": n / flat_wall,
+          "found": int(w.found.sum()), "dp_overflow": bool(w.dp_overflow),
+          "card_vs_cpu": {"reads": c, "rows_differ": 0, "cpu_s": cpu_s},
+          "replays": replays["index2_step"]})
+    del step, sh, sh_cpu, arrays, tb, tq, tl, packed
+    torch.cuda.empty_cache()
+
+    # (3) paired -ishards 2
+    rng = np.random.default_rng(seed + 5)
+    ends, pquals, pos = simulate_pairs(rng, ctx["codes"], MESH_PAIRS, READ_LEN)
+    pnames = [b"p%d_%d_%d" % (i, a, b_) for i, (a, b_) in enumerate(zip(*pos.tolist()))]
+
+    def write_pairs(tag: str, k: int) -> tuple[str, str]:
+        fqs = tuple(os.path.join(workdir, f"{tag}_{e + 1}.fq") for e in range(2))
+        for e in range(2):
+            write_fastq(fqs[e], ends[e, :k], pquals[e, :k], pnames[:k])
+        return fqs
+
+    cls = paired_driver.PairedEndAligner
+    batch_calls = {name: [] for name in KERNEL_SOURCES}
+    fqp = write_pairs("mesh_pairs", MESH_PAIRS)
+    out = os.path.join(workdir, "mesh_pairs.sam")
+    n_sharded = [0]
+    intersect = mesh.paired_candidates_sharded
+
+    def counted_intersect(*a, **kw):
+        n_sharded[0] += 1
+        return intersect(*a, **kw)
+
+    mesh.paired_candidates_sharded = counted_intersect
+    try:
+        with recording(batch_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}):
+            prun = run_paired(["paired", idx_dir, *fqp, "-o", out, "-ishards", "2"],
+                              phase="mesh")
+    finally:
+        mesh.paired_candidates_sharded = intersect
+    replays["paired_batch"] = replay_launches(batch_calls, "mesh paired batches", "mesh")
+    summ = paired_summary(out)
+    if prun["mesh"] != {"data": 1, "index": 1} or n_sharded[0] != MESH_PAIRS // 512:
+        fail("mesh", f"paired -ishards 2 ran mesh {prun['mesh']}, "
+                     f"{n_sharded[0]} sharded intersections")
+    if summ["primary"] != 2 * MESH_PAIRS or summ["within_30bp_share"] < MIN_WITHIN_30BP:
+        fail("mesh", f"paired -ishards 2: {summ}")
+    missing = [k for k in KERNEL_SOURCES if prun["launches"].get(k, 0) == 0]
+    if missing:
+        fail("mesh", f"paired -ishards 2: no launch of {missing}: {prun['launches']}")
+    runs["paired_ishards2"] = {"launches": prun["launches"],
+                               "pairs_per_s": MESH_PAIRS / prun["wall_s"]}
+    emit({"phase": "mesh", "ok": True, "run": "paired_ishards2", "pairs": MESH_PAIRS,
+          "timed_run": prun, "sam": summ, "pairs_per_s": MESH_PAIRS / prun["wall_s"],
+          "replays": replays["paired_batch"]})
+    fq1 = write_pairs("mesh_pcheck", MESH_CHECK_PAIRS)
+    o = os.path.join(workdir, "mesh_pcheck_cuda.sam")
+    r = run_paired(["paired", idx_dir, *fq1, "-o", o, "-ishards", "2"], phase="mesh")
+    o_cpu = os.path.join(workdir, "mesh_pcheck_cpu.sam")
+    checks.append({"phase": "mesh", "tag": "mesh_paired", "reads": 2 * MESH_CHECK_PAIRS,
+                   "paired": True,
+                   "cpu_argv": ["paired", idx_dir, *fq1, "-o", o_cpu, "-ishards", "2"],
+                   "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]})
+    empty = [k for k in KERNEL_SOURCES
+             if not any(rp[k]["launches"] for rp in replays.values())]
+    if empty:
+        fail("mesh", f"no launch of {empty} recorded on the mesh path")
+    return {"runs": runs, "replays": replays}, checks
+
+
+APPS_READS = 2048
+DEPTH_GENOME_BP = 200_000
+
+
+def phase_apps(seed: int, ctx: dict, workdir: str) -> dict:
+    """The apps on the card: `daemon` on a Unix socket in a thread (the
+    card as its device, so the cached index stays there) runs `single`
+    sent through `command`, whose SAM must equal the direct run's; `roc`
+    on that SAM (wgsim-style read names); `tofastq` on it, which must
+    give back the FASTQ's bytes, and `single` on that FASTQ, which must
+    give the same records; `depth` on a small index (host numpy)."""
+    import contextlib as cl
+    import io
+    import threading
+
+    from snap_tpu_torch import apps
+    from snap_tpu_torch.cli import main as cli_main
+
+    t_phase = time.time()
+    idx_dir = ctx["idx_dir"]
+    rng = np.random.default_rng(seed + 6)
+    reads, quals, _, starts = simulate_reads(rng, ctx["codes"], ctx["contig_start"],
+                                             APPS_READS, READ_LEN)
+    names = [b"chr21sim_%d_%d_%d" % (s + 1, s + 1, i) for i, s in enumerate(starts.tolist())]
+    fq = os.path.join(workdir, "apps.fq")
+    write_fastq(fq, reads, quals, names)
+    res = {}
+
+    sock = os.path.join(workdir, "daemon.sock")
+    srv = threading.Thread(target=apps.cmd_daemon, args=([sock], CARD), daemon=True)
+    srv.start()
+    for _ in range(600):
+        if os.path.exists(sock):
+            break
+        time.sleep(0.05)
+    if not os.path.exists(sock):
+        fail("apps", "the daemon did not open its socket")
+    out_d = os.path.join(workdir, "apps_daemon.sam")
+    t0 = time.perf_counter()
+    rc, launches = counted(lambda: apps.cmd_command([sock, "single", idx_dir, fq, "-o", out_d]))
+    daemon_s = time.perf_counter() - t0
+    if rc != 0:
+        fail("apps", f"`command single` through the daemon exited {rc}")
+    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
+    if missing:
+        fail("apps", f"the daemon's single: no launch of {missing}: {launches}")
+    if apps.cmd_command([sock, "exit"]) != 0:
+        fail("apps", "the daemon did not take `exit`")
+    srv.join(timeout=60)
+    if srv.is_alive():
+        fail("apps", "the daemon thread is still running after `exit`")
+    out = os.path.join(workdir, "apps_direct.sam")
+    direct = run_single(["single", idx_dir, fq, "-o", out], phase="apps")
+
+    def body(path):  # @PG's CL: holds the output path
+        with open(path, "rb") as f:
+            return [ln for ln in f.read().split(b"\n") if not ln.startswith(b"@PG")]
+
+    if body(out_d) != body(out):
+        fail("apps", "the daemon's SAM differs from the direct run's")
+    res["daemon"] = {"wall_s": daemon_s, "launches": launches,
+                     "direct_wall_s": direct["wall_s"], "same_sam": True}
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(buf):
+        rc = apps.cmd_roc([out])
+    roc_s = time.perf_counter() - t0
+    table = [ln.split("\t") for ln in buf.getvalue().splitlines()[1:] if ln]
+    if rc != 0 or not table:
+        fail("apps", f"roc exited {rc}: {buf.getvalue()[:500]}")
+    aligned = sum(int(t[1]) for t in table)
+    wrong = sum(int(t[2]) for t in table)
+    mapq10 = [t for t in table if int(t[0]) >= 10]
+    res["roc"] = {"s": roc_s, "aligned": aligned, "misaligned": wrong,
+                  "mapq10_reads": sum(int(t[1]) for t in mapq10),
+                  "mapq10_misaligned": sum(int(t[2]) for t in mapq10)}
+    if aligned < 0.8 * APPS_READS or res["roc"]["mapq10_misaligned"] > 0.02 * aligned:
+        fail("apps", f"roc: {res['roc']}")
+
+    back = os.path.join(workdir, "apps_back.fq")
+    t0 = time.perf_counter()
+    if apps.cmd_tofastq([out, back]) != 0:
+        fail("apps", "tofastq failed")
+    tofastq_s = time.perf_counter() - t0
+    with open(fq, "rb") as f1, open(back, "rb") as f2:
+        if f1.read() != f2.read():
+            fail("apps", "tofastq did not give back the FASTQ's bytes")
+    out_b = os.path.join(workdir, "apps_back.sam")
+    run_single(["single", idx_dir, back, "-o", out_b], phase="apps")
+    if sam_records(out_b) != sam_records(out):
+        fail("apps", "single on the tofastq FASTQ wrote other records")
+    res["tofastq"] = {"s": tofastq_s, "same_fastq": True, "same_records_again": True}
+
+    small = os.path.join(workdir, "depth.fa")
+    write_fasta(small, "small", np.random.default_rng(seed + 7).integers(
+        0, 4, DEPTH_GENOME_BP).astype(np.uint8))
+    small_idx = os.path.join(workdir, "depth_idx")
+    tsv = os.path.join(workdir, "depth.tsv")
+    t0 = time.perf_counter()
+    if cli_main(["index", small, small_idx, "-s", "20", ",", "depth", small_idx, tsv]) != 0:
+        fail("apps", "index + depth on the small genome failed")
+    depth_s = time.perf_counter() - t0
+    with open(tsv) as f:
+        total = {int(v): int(c) for k, v, c in (ln.split("\t") for ln in f.read().splitlines()[1:])
+                 if k == "TOTAL"}
+    if sum(total.values()) != DEPTH_GENOME_BP:
+        fail("apps", f"depth covered {sum(total.values())} of {DEPTH_GENOME_BP} loci")
+    res["depth"] = {"s": depth_s, "loci": DEPTH_GENOME_BP, "depth_1_loci": total.get(1, 0)}
+    res["phase_s"] = time.time() - t_phase
+    emit({"phase": "apps", "ok": True, "reads": APPS_READS, **res})
+    return res
+
+
+
 def phase_card_vs_cpu(checks: list) -> list:
     """The CPU's runs of the card checks (card_check), compared with the
     card's records (card_vs_cpu). They come after every card phase: the
     CPU runs load the index to host memory, once."""
     out = []
     for c in checks:
-        r = run_single(c["cpu_argv"], device="cpu", phase=c["phase"])
+        if c.get("paired"):
+            r = run_paired(c["cpu_argv"], device="cpu", phase=c["phase"])
+        else:
+            r = run_single(c["cpu_argv"], device="cpu", phase=c["phase"])
         diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
         out.append({"phase": c["phase"], "run": c["tag"], "reads": c["reads"],
                     "records_differ": len(diffs), "diffs": diffs,
@@ -1792,7 +2147,8 @@ def phase_card_vs_cpu(checks: list) -> list:
 
 
 def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
-                 paired: dict, long: dict, options: dict) -> dict:
+                 paired: dict, long: dict, options: dict, mesh: dict,
+                 apps: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
     run (-b 1024) and in the timed paired run (launches_paired), and the
     sums over the launches_step_c launches of one 16384-read phase-C step
@@ -1805,7 +2161,10 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     and options phases add each run's launches, the launches replayed,
     and the sums over the first batch's launches at -rl 256, -rl 400
     and 1500 bp (`rl256`, `rl400`, `rl1500`: device time, per-call time,
-    bound; the plain versions timed once, by their comparison call)."""
+    bound; the plain versions timed once, by their comparison call). The
+    mesh phase adds each of its runs' launches (launches_mesh) and the
+    launches it replayed (mesh_launches_replayed), the apps phase the
+    daemon's run's launches (launches_daemon)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -1836,8 +2195,13 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
         k["long_launches_replayed"] = {t: r["replays"][name]["launches"]
                                        for t, r in long.items()}
         k["launches_options"] = {t: r["launches"][name] for t, r in options.items()}
+        k["launches_mesh"] = {t: r["launches"][name] for t, r in mesh["runs"].items()}
+        k["mesh_launches_replayed"] = {t: r[name]["launches"]
+                                       for t, r in mesh["replays"].items()}
+        k["launches_daemon"] = apps["daemon"]["launches"][name]
         k["max_abs_err"] = max([k["max_abs_err"], *(
-            r["replays"][name]["max_abs_err"] for r in long.values())])
+            r["replays"][name]["max_abs_err"] for r in long.values()), *(
+            r[name]["max_abs_err"] for r in mesh["replays"].values())])
         for t, r in long.items():
             if name in r["first_batch"]:
                 k[t] = r["first_batch"][name]
@@ -1889,14 +2253,18 @@ def main() -> None:
         seconds["bam"], t0 = time.time() - t0, time.time()
         thread_checks = phase_threads(ctx, sam, wd)
         seconds["threads"], t0 = time.time() - t0, time.time()
+        mesh, mesh_checks = phase_mesh(args.seed, ctx, sam, wd)
+        seconds["mesh"], t0 = time.time() - t0, time.time()
+        apps = phase_apps(args.seed, ctx, wd)
+        seconds["apps"], t0 = time.time() - t0, time.time()
         ksum = phase_kernels(calls, base)
         seconds["kernels"], t0 = time.time() - t0, time.time()
-        phase_card_vs_cpu(long_checks + option_checks + thread_checks)
+        phase_card_vs_cpu(long_checks + option_checks + thread_checks + mesh_checks)
         seconds["card_vs_cpu"] = time.time() - t0
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})
     emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired,
-                      long, options))
+                      long, options, mesh, apps))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

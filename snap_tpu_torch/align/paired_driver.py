@@ -1,14 +1,15 @@
 """End-to-end paired-end driver.
 
-Counterpart of snap_tpu.align.paired_driver, without its multi-device
-mesh branches (a mesh raises, naming ROADMAP A13). Behavioral
-reference: SNAP's PairedAlignerContext::runIterationThreadImpl
+Counterpart of snap_tpu.align.paired_driver. Behavioral reference: SNAP's PairedAlignerContext::runIterationThreadImpl
 (PairedAligner.cpp:490-930) and SAMFormat::writePairs/fillMateInfo
 (SAM.cpp:1575, 1308-1420). Both ends of every pair go through one device
 batch (rows 0..B-1 = first ends, B..2B-1 = second ends) on the index's
 device: the intersection (align/intersect_device.py, its wide tier, and
 the exact host redo of the pairs still flagged) and the two-tier
-scoring; then pairing, chimeric fallback, CIGARs, and mate-info SAM
+scoring. On a (data x index) mesh the intersection's phases 1-2 run at
+every mesh position (parallel.mesh.paired_candidates_sharded, no wide
+tier, as in snap_tpu) and the scoring on the mesh's primary device, with
+the flat view of shard 0 (scoring reads only the genome). Then pairing, chimeric fallback, CIGARs, and mate-info SAM
 emission happen host-side.
 
 `PairedEndAligner.branches` counts the pairs that took each path (the
@@ -86,7 +87,7 @@ class PairedEndAligner:
     max_secondary_per_contig: int = -1       # -mpc
     enable_hamming: bool = True              # -eh (default on,
                                              # PairedAligner.cpp:241)
-    mesh: object = None                      # multi-device: not ported (A13)
+    mesh: object = None                      # multi-device (data x index)
     force_kind: str | None = None            # -pairedFastq
     force_gzip: bool = False                 # -pairedCompressed...
     force_interleaved: bool = False          # -pairedInterleavedFastq
@@ -100,12 +101,16 @@ class PairedEndAligner:
     branches: Counter = field(default_factory=Counter)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "PairedEndAligner over a multi-device mesh is not ported to "
-                "snap_tpu_torch yet (ROADMAP A13)"
+        if self.mesh is not None and self.mesh.multiprocess:
+            # as in snap_tpu, SAM is written by one process
+            raise ValueError(
+                "PairedEndAligner writes SAM from one process; its mesh "
+                "spans several ranks"
             )
-        self.device = self.index.torch_device
+        # on a mesh the scoring runs on its primary device
+        self.device = (
+            self.index.torch_device if self.mesh is None else self.mesh.primary
+        )
         if self.params.max_k_indels is None:
             # reference default: maxDistForIndels = 40
             # (AlignerOptions.cpp:108); consumed only by the paired
@@ -190,6 +195,18 @@ class PairedEndAligner:
             max_k_indels=ip.max_k_indels,
         )
         dev_off, dev_sets = self._to_dev(offsets), self._to_dev(set_ids)
+        if self.mesh is not None:
+            # sharded index: per-shard phase-1 entry tables concatenate
+            # along the 'index' mesh axis; snap_tpu runs no wide tier
+            # here, so overflowed pairs go straight to the host redo
+            from ..parallel.mesh import paired_candidates_sharded
+
+            return paired_candidates_sharded(
+                self.index.device_sharded,
+                dev_bases[:B], dev_bases[B:], dev_len[:B], dev_len[B:],
+                dev_off[:B], dev_off[B:], dev_sets[:B], dev_sets[B:],
+                self.min_spacing, self.max_spacing, dip, self.mesh,
+            )
         pcd = intersect_device.paired_candidates_device(
             self.index.device, dev_bases, dev_len, dev_off, dev_sets,
             self.min_spacing, self.max_spacing, dip,
@@ -237,7 +254,12 @@ class PairedEndAligner:
             max_spacing=self.max_spacing,
             max_k_indels=self.params.mki,
         )
-        didx_sc = self.index.device
+        if self.mesh is None:
+            didx_sc = self.index.device
+        else:
+            from ..parallel.mesh import local_index_view
+
+            didx_sc = local_index_view(self.index.device_sharded)
         dev_len = self._to_dev(len_eff)
         pc = None  # host candidates, fetched lazily (hamming rescue)
         if (

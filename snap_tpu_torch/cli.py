@@ -1,17 +1,21 @@
 """Command-line interface.
 
 Counterpart of snap_tpu.cli: the `index`, `single` and `paired`
-commands, their option parsing, and the comma multi-run. Behavioral reference: SNAP's
+commands, their option parsing, the apps commands (`tofastq`, `depth`,
+`roc`, `daemon`, `command`; see apps.py), and the comma multi-run. Behavioral reference: SNAP's
 CLI surface (CommandProcessor.cpp:41-57, AlignerOptions.cpp usage).
 SNAP-style manual flag parsing — SNAP uses `-h` for maxHits, so
 argparse's default help is not an option.
 
 The device is a keyword of the Python entry point, main(argv,
-device=None): the CUDA card unless the caller passes device="cpu". It
-is not a command-line flag, so the @PG CL: field of the SAM header holds
-the same arguments as snap_tpu's. The apps commands and -ishards > 1 are
-not ported yet: they exit 1 naming their ROADMAP item. After the stats
-table a `single` or `paired` run prints its aligner's host branches
+device=None, devices=None): the CUDA card unless the caller passes
+device="cpu". `devices` is the list a run spreads over (default: every
+visible card, or every rank's cards in a torch.distributed group; one
+device on the CPU): with more than one, or with -ishards, `single` and
+`paired` run on a (data x index) mesh of them (parallel/mesh.py), as
+snap_tpu's do over jax.devices(). Neither is a command-line flag, so the
+@PG CL: field of the SAM header holds the same arguments as snap_tpu's.
+After the stats table a `single` or `paired` run prints its aligner's host branches
 (the reads or pairs of each path it took) to stderr.
 """
 
@@ -183,17 +187,43 @@ def _load_index_cached(index_dir: str, device=None) -> GenomeIndex:
     return idx
 
 
+def _maybe_mesh(opts: dict, device=None, devices=None):
+    """Multi-device routing: when more than one device is given (or
+    -ishards asks for index sharding), build the (data x index) mesh.
+    Under a launcher's environment (MASTER_ADDR, RANK, WORLD_SIZE) the
+    torch.distributed group is initialised once first: nccl on CUDA,
+    gloo on the CPU. Returns (mesh | None, n_index) by snap_tpu's rules:
+    one device and no -ishards is no mesh, -ishards that does not divide
+    the device count falls back to one index shard (so -ishards 2 on one
+    device is a 1 x 1 mesh), and -b rounds up to a multiple of n_data."""
+    import torch.distributed as dist
 
-def _not_ported(what: str, item: str) -> int:
-    print(
-        f"{what} is not ported to snap_tpu_torch yet (ROADMAP {item}); "
-        "use python -m snap_tpu",
-        file=sys.stderr,
-    )
-    return 1
+    from .parallel.mesh import default_devices, make_mesh
+
+    dev = resolve_device(device)
+    if (
+        all(os.environ.get(k) for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"))
+        and not dist.is_initialized()
+    ):
+        dist.init_process_group(backend="nccl" if dev.type == "cuda" else "gloo")
+    ranks = None
+    if devices is None:
+        devices, ranks = default_devices(dev)
+    n_devices = len(devices)
+    n_index = max(1, opts.get("ishards", 1))
+    if n_devices == 1 and n_index == 1:
+        return None, 1
+    if n_devices % n_index != 0:
+        n_index = 1
+    n_data = n_devices // n_index
+    mesh = make_mesh(n_data, n_index, devices, ranks)
+    # device batches split evenly over the data axis
+    if opts["batch_size"] % n_data:
+        opts["batch_size"] = ((opts["batch_size"] // n_data) + 1) * n_data
+    return mesh, n_index
 
 
-def cmd_single(args: list[str], device=None) -> int:
+def cmd_single(args: list[str], device=None, devices=None) -> int:
     if len(args) < 2:
         print(
             "usage: snap-tpu single <index-dir> <input.fq> [-o out.sam] "
@@ -214,8 +244,6 @@ def cmd_single(args: list[str], device=None) -> int:
         print("single: no input files", file=sys.stderr)
         return 1
     opts = _parse_align_options(args[i:], batch_size=1024)
-    if opts["ishards"] > 1:
-        return _not_ported("-ishards (index sharding over devices)", "A13")
     from .errors import configure as _configure_errors
 
     _configure_errors(opts["quiet"], opts["very_quiet"], opts["hdp"])
@@ -227,6 +255,9 @@ def cmd_single(args: list[str], device=None) -> int:
             1, int(opts["max_read_len"] * opts["seed_coverage"]
                    / index.seed_len)
         )
+    mesh, n_index = _maybe_mesh(opts, device, devices)
+    if mesh is not None:
+        index.to_mesh(mesh, n_index)
     params = AlignParams(
         seed_len=index.seed_len,
         max_probe=index.max_probe,
@@ -249,6 +280,7 @@ def cmd_single(args: list[str], device=None) -> int:
         kill_if_too_slow=opts["kts"],
         force_kind=opts["force_kind"],
         force_gzip=opts["force_gzip"],
+        mesh=mesh,
         threads=opts["threads"],
         adaptive=opts["adaptive"],
     )
@@ -264,7 +296,7 @@ def cmd_single(args: list[str], device=None) -> int:
     )
 
 
-def cmd_paired(args: list[str], device=None) -> int:
+def cmd_paired(args: list[str], device=None, devices=None) -> int:
     if len(args) < 2:
         print(
             "usage: snap-tpu paired <index-dir> <in1.fq> [in2.fq] [-o out.sam]"
@@ -279,8 +311,6 @@ def cmd_paired(args: list[str], device=None) -> int:
         fq2 = args[i]
         i += 1
     opts = _parse_align_options(args[i:])
-    if opts["ishards"] > 1:
-        return _not_ported("-ishards (index sharding over devices)", "A13")
     # -t is parsed and, as in snap_tpu, only `single` uses it
     from .errors import configure as _configure_errors
 
@@ -293,6 +323,9 @@ def cmd_paired(args: list[str], device=None) -> int:
     # -n default differs by command: 25 single / 8 paired
     # (AlignerOptions.cpp:107-117 defaults block)
     opts["overrides"].setdefault("num_seeds", DEFAULT_NUM_SEEDS_PAIRED)
+    mesh, n_index = _maybe_mesh(opts, device, devices)
+    if mesh is not None:
+        index.to_mesh(mesh, n_index)
     params = AlignParams(
         seed_len=index.seed_len,
         max_probe=index.max_probe,
@@ -321,6 +354,7 @@ def cmd_paired(args: list[str], device=None) -> int:
         force_kind=opts["force_kind"],
         force_gzip=opts["force_gzip"],
         force_interleaved=opts["interleaved"],
+        mesh=mesh,
     )
     return _run_with_writer(
         index, "paired " + " ".join(args), opts,
@@ -677,30 +711,40 @@ def _run_with_writer(index, command_line: str, opts: dict, run, aligner) -> int:
     return 0
 
 
-APP_COMMANDS = ("tofastq", "depth", "roc", "daemon", "command")
-
-
-def run_one_command(argv: list[str], device=None) -> int:
-    """Dispatch one top-level command on `device` (the card by default)."""
+def run_one_command(argv: list[str], device=None, devices=None) -> int:
+    """Dispatch one top-level command (also the daemon's entry point) on
+    `device` (the card by default), spreading `single` and `paired` over
+    `devices` (see _maybe_mesh)."""
     if not argv:
         return 1
     cmd, rest = argv[0], argv[1:]
     if cmd == "index":
         return cmd_index(rest, device)
     if cmd == "single":
-        return cmd_single(rest, device)
+        return cmd_single(rest, device, devices)
     if cmd == "paired":
-        return cmd_paired(rest, device)
-    if cmd in APP_COMMANDS:
-        return _not_ported(cmd, "A12")
+        return cmd_paired(rest, device, devices)
+    from . import apps
+
+    if cmd == "tofastq":
+        return apps.cmd_tofastq(rest)
+    if cmd == "depth":
+        return apps.cmd_depth(rest, device)
+    if cmd == "roc":
+        return apps.cmd_roc(rest)
+    if cmd == "daemon":
+        return apps.cmd_daemon(rest, device, devices)
+    if cmd == "command":
+        return apps.cmd_command(rest)
     print(f"unknown command {cmd}", file=sys.stderr)
     return 1
 
 
-def main(argv: list[str] | None = None, device=None) -> int:
+def main(argv: list[str] | None = None, device=None, devices=None) -> int:
     """Run the command line `argv` on `device`: the CUDA card unless the
     caller passes device="cpu" (raises when CUDA is asked for but
-    absent)."""
+    absent). `devices` lists the devices `single` and `paired` spread
+    over (default: every visible card; one device on the CPU)."""
     argv = argv if argv is not None else sys.argv[1:]
     device = resolve_device(device)
     print("Welcome to snap-tpu (PyTorch port), a SNAP-capability aligner.",
@@ -724,7 +768,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     for run in runs:
         if not run:
             continue
-        code = run_one_command(run, device)
+        code = run_one_command(run, device, devices)
         if code != 0:
             return code
     return code

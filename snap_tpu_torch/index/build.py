@@ -53,6 +53,25 @@ def murmur_finalize64(keys: np.ndarray) -> np.ndarray:
     return k
 
 
+def pack_seeds(bases: np.ndarray, positions: np.ndarray, seed_len: int):
+    """Pack 2-bit seeds at `positions`. Returns (fwd, rc, valid).
+
+    fwd[p] has the base at p in the high bits (string order), rc is the
+    packed reverse complement, valid = the window has only ACGT.
+    """
+    fwd = np.zeros(len(positions), dtype=np.uint64)
+    rc = np.zeros(len(positions), dtype=np.uint64)
+    valid = np.ones(len(positions), dtype=bool)
+    for i in range(seed_len):
+        b = bases[positions + i].astype(np.uint64)
+        valid &= b < 4
+        bs = np.where(b < 4, b, 0).astype(np.uint64)
+        fwd = (fwd << np.uint64(2)) | bs
+        # complement of base at p+i goes to rc bit position i (from low end)
+        rc |= (np.uint64(3) - bs) << np.uint64(2 * i)
+    return fwd, rc, valid
+
+
 def pack_seeds_range(bases: np.ndarray, lo: int, hi: int, seed_len: int):
     """Pack the 2-bit seeds at the contiguous positions [lo, hi).
 
@@ -390,6 +409,121 @@ def build_index_chunked(
 _TRIPLE_DT = np.dtype(
     [("key", np.uint64), ("loc", np.uint32), ("orient", np.uint8)]
 )
+
+
+def _stack_shards(shards: list[dict], seed_len: int) -> dict:
+    """Stack per-shard tables and hit lists on a leading [n_shards] axis,
+    padded to the largest shard (padding table slots are empty keys)."""
+    bank_slots = max(sh["table"].shape[1] for sh in shards)
+    hmax = max(max(sh["hits"].shape[0], 1) for sh in shards)
+
+    def pad_hits(a):
+        out = np.zeros((hmax,), dtype=a.dtype)
+        out[: len(a)] = a
+        return out
+
+    def pad_table(t):
+        if t.shape[1] == bank_slots:
+            return t
+        out = np.zeros((t.shape[0], bank_slots, 4), dtype=np.uint32)
+        out[:, :, 0] = 0xFFFFFFFF
+        out[:, :, 1] = 0xFFFFFFFF
+        out[:, : t.shape[1]] = t
+        return out
+
+    return {
+        "seed_len": seed_len,
+        "n_shards": len(shards),
+        "max_probe": max(sh["max_probe"] for sh in shards),
+        "hits": np.stack([pad_hits(sh["hits"]) for sh in shards]),
+        "table": np.stack([pad_table(sh["table"]) for sh in shards]),
+    }
+
+
+def _shard_of(keys: np.ndarray, n_shards: int) -> np.ndarray:
+    """Owning shard of each canonical key: the top log2(n_shards) bits of
+    its murmur finalization (bank selection uses the low bits, so the
+    two compose)."""
+    shift = np.uint64(64 - int(np.log2(n_shards)))
+    return (murmur_finalize64(keys) >> shift).astype(np.int64)
+
+
+def shard_index(
+    genome: Genome, seed_len: int, n_shards: int, load_factor: float = 0.5
+) -> dict:
+    """Build a seed-sharded index: n_shards independent hash tables.
+
+    Every shard is a complete, self-contained index over its key subset
+    (SNAP shards by seed prefix into per-prefix tables,
+    GenomeIndex.cpp:1026-1110): a lookup probed against a non-owning
+    shard cleanly misses. Arrays are padded to the largest shard and
+    stacked on a leading axis, one entry per 'index' mesh column.
+    """
+    assert n_shards >= 1 and (n_shards & (n_shards - 1)) == 0
+    keys, orient, locs = extract_canonical_seeds(genome, seed_len)
+    if n_shards > 1:
+        shard_of = _shard_of(keys, n_shards)
+    else:
+        shard_of = np.zeros(len(keys), dtype=np.int64)
+    shards = []
+    for s in range(n_shards):
+        m = shard_of == s
+        locs_s, uk, start, n0, n1 = _dedup_sorted_triples(
+            keys[m], orient[m], locs[m]
+        )
+        shards.append(assemble_table(locs_s, uk, start, n0, n1, load_factor))
+    return _stack_shards(shards, seed_len)
+
+
+def reshard_index(
+    arrays: dict, n_shards: int, load_factor: float = 0.5
+) -> dict:
+    """Re-shard a built (or loaded) flat index into the stacked
+    [n_shards, ...] layout without rescanning the genome: v3 table slots
+    carry the full canonical key, so the key groups and their hit runs
+    come straight from the table, regrouped by shard_index's ownership
+    rule."""
+    assert n_shards >= 1 and (n_shards & (n_shards - 1)) == 0
+    if n_shards == 1:
+        return {
+            "seed_len": arrays["seed_len"],
+            "n_shards": 1,
+            "max_probe": arrays["max_probe"],
+            "hits": np.asarray(arrays["hits"])[None],
+            "table": np.asarray(arrays["table"])[None],
+        }
+    table = np.asarray(arrays["table"]).reshape(-1, 4)
+    hits = np.asarray(arrays["hits"])
+    occ = ~((table[:, 0] == 0xFFFFFFFF) & (table[:, 1] == 0xFFFFFFFF))
+    keys = table[occ, 0].astype(np.uint64) | (
+        table[occ, 1].astype(np.uint64) << np.uint64(32)
+    )
+    start = table[occ, 2].astype(np.int64)
+    n0 = (table[occ, 3] & 0xFFFF).astype(np.int64)
+    n1 = (table[occ, 3] >> 16).astype(np.int64)
+    shard_of = _shard_of(keys, n_shards)
+    shards = []
+    for s in range(n_shards):
+        m = shard_of == s
+        ks, st, a0, a1 = keys[m], start[m], n0[m], n1[m]
+        tot = a0 + a1
+        T = int(tot.sum())
+        new_start = np.zeros(len(ks), dtype=np.int64)
+        if len(ks):
+            new_start[1:] = np.cumsum(tot)[:-1]
+        if T:
+            run_id = np.repeat(np.arange(len(ks)), tot)
+            within = np.arange(T) - np.repeat(new_start, tot)
+            new_hits = hits[st[run_id] + within]
+        else:
+            new_hits = np.zeros(0, dtype=hits.dtype)
+        shards.append(
+            assemble_table(
+                new_hits, ks, new_start, a0.astype(np.int32),
+                a1.astype(np.int32), load_factor,
+            )
+        )
+    return _stack_shards(shards, arrays["seed_len"])
 
 
 def save_index(index: dict, genome: Genome, directory: str) -> None:

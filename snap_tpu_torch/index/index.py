@@ -288,6 +288,31 @@ class GenomeIndex:
         arrays = load_index_arrays(directory)
         return cls(genome, arrays, device)
 
+    def to_mesh(self, mesh, n_index: int = 1) -> "GenomeIndex":
+        """Place the index for multi-device execution: re-shard the hash
+        table over the mesh's 'index' axis (no genome rescan; see
+        build.reshard_index) and put each shard on the devices of its
+        index column, the genome on every device. Sets .device_sharded
+        and .mesh; max_probe widens to cover the shards' spans, so build
+        the aligner's AlignParams after this call."""
+        from ..parallel.mesh import sharded_device_index
+        from .build import reshard_index
+
+        arrays = reshard_index(
+            {
+                "seed_len": self.seed_len,
+                "max_probe": self.max_probe,
+                **self._host_arrays,
+            },
+            n_index,
+        )
+        self.max_probe = max(self.max_probe, arrays["max_probe"])
+        self.device_sharded = sharded_device_index(
+            arrays, np.asarray(self.genome_meta.bases), mesh
+        )
+        self.mesh = mesh
+        return self
+
     def save(self, directory: str) -> None:
         from .build import save_index
 

@@ -336,3 +336,95 @@ def test_snapxl_card_matches_cpu(tmp_path, monkeypatch):
     assert best["cuda"] == best["cpu"]
     assert best["cuda"] == [[DEFAULT_CONTIG_PADDING + s for s in starts], [400, 200], [0, 200]]
     assert sorted(parse_sam_bytes(sams["cuda"])) == ["xl0", "xl1"]
+
+
+@pytest.mark.cuda
+def test_mesh_card_matches_cpu(tmp_path, monkeypatch):
+    """The multi-device path on one card: `single` and `paired` with
+    -ishards 2 over devices=[cuda:0, cuda:0] (a data = 1 x index = 2
+    mesh: two index shards, the K axis merged across them) against the
+    same mesh of two CPU devices, the same SAM but for MAPQ +-1 in at
+    most 2 records; and align_winners_sharded on those meshes, whose
+    packed winners are equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from snap_tpu_torch.align.pipeline import AlignParams
+    from snap_tpu_torch.cli import main
+    from snap_tpu_torch.index.index import GenomeIndex
+    from snap_tpu_torch.parallel import mesh
+
+    sams, winners = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        d.mkdir()
+        write_pair_inputs(str(d), "repeat25", 128)  # writes an empty r.fq
+        write_inputs(str(d), "repeat25", 192)
+        monkeypatch.chdir(d)
+        devices = [torch.device("cuda", 0) if dev == "cuda" else torch.device("cpu")] * 2
+        assert main(["index", "g.fa", "idx", "-s", "20"], device=dev) == 0
+        assert main(["single", "idx", "r.fq", "-o", "s.sam", "-b", "64", "-ishards", "2"],
+                    device=dev, devices=devices) == 0
+        assert main(["paired", "idx", "r1.fq", "r2.fq", "-o", "p.sam", "-b", "64",
+                     "-ishards", "2"], device=dev, devices=devices) == 0
+        sams[dev] = [(d / n).read_bytes().split(b"\n") for n in ("s.sam", "p.sam")]
+        idx = GenomeIndex.load("idx", device=dev)
+        m = mesh.make_mesh(1, 2, devices)
+        idx.to_mesh(m, 2)
+        codes = genome_codes("repeat25")
+        rng = np.random.default_rng(3)
+        starts = rng.integers(0, codes.size - 200, 256)
+        b = np.full((256, 128), 4, np.uint8)
+        b[:, :100] = codes[starts[:, None] + np.arange(100)]
+        q = np.full((256, 128), 0, np.uint8)
+        q[:, :100] = ord("I")
+        win, _ = mesh.align_winners_sharded(
+            idx.device_sharded, *(torch.from_numpy(x).to(devices[0]) for x in (
+                b, q, np.full(256, 100, np.int32))),
+            idx.genome_meta.first_alt_start(),
+            AlignParams(seed_len=20, max_probe=idx.max_probe), m,
+        )
+        winners[dev] = win.cpu().numpy()
+    for card, cpu in zip(sams["cuda"], sams["cpu"]):
+        assert sum(1 for ln in cpu if ln and not ln.startswith(b"@")) >= 192
+        same_but_mapq(card, cpu)
+    np.testing.assert_array_equal(winners["cuda"], winners["cpu"])
+
+
+@pytest.mark.cuda
+def test_daemon_on_card(tmp_path, monkeypatch):
+    """`daemon` on the card in a thread: `single` sent through `command`
+    writes the SAM a direct run on the card writes (but for @PG, whose
+    CL: holds the output path), and the index stays cached between
+    commands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+
+    from snap_tpu_torch import apps
+    from snap_tpu_torch.cli import _INDEX_CACHE, main
+
+    write_inputs(str(tmp_path), "repeat25", 128)
+    monkeypatch.chdir(tmp_path)
+    assert main(["index", "g.fa", "idx", "-s", "20"], device="cuda") == 0
+    sock = str(tmp_path / "d.sock")
+    srv = threading.Thread(target=apps.cmd_daemon, args=([sock], "cuda"), daemon=True)
+    srv.start()
+    for _ in range(200):
+        if os.path.exists(sock):
+            break
+        time.sleep(0.05)
+    assert apps.cmd_command([sock, "single", "idx", "r.fq", "-o", "d1.sam"]) == 0
+    cached = dict(_INDEX_CACHE)
+    assert all(i.torch_device.type == "cuda" for i in cached.values())
+    assert apps.cmd_command([sock, "single", "idx", "r.fq", "-o", "d2.sam"]) == 0
+    assert dict(_INDEX_CACHE) == cached
+    assert apps.cmd_command([sock, "exit"]) == 0
+    srv.join(timeout=30)
+    assert not srv.is_alive()
+    assert main(["single", "idx", "r.fq", "-o", "direct.sam"], device="cuda") == 0
+
+    def body(n):
+        return [ln for ln in (tmp_path / n).read_bytes().split(b"\n")
+                if not ln.startswith(b"@PG")]
+
+    assert body("d1.sam") == body("direct.sam") == body("d2.sam")

@@ -255,17 +255,3 @@ def test_cli_multi_run_and_trace(tmp_path):
             if not ln.startswith("@")]
     assert len(body) == 12
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-
-
-@pytest.mark.parametrize("argv, item", [
-    (["paired", "idx", "a.fq", "b.fq", "-ishards", "2"], "A13"),
-    (["single", "idx", "a.fq", "-ishards", "2"], "A13"),
-    (["roc", "a.sam"], "A12"),
-    (["daemon"], "A12"),
-    (["tofastq", "in.sam"], "A12"),
-])
-def test_cli_names_what_is_not_ported(capsys, argv, item):
-    from snap_tpu_torch.cli import main
-
-    assert main(argv, device="cpu") == 1
-    assert f"ROADMAP {item}" in capsys.readouterr().err

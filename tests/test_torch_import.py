@@ -49,6 +49,10 @@ MODULES = [
     "snap_tpu_torch.align.paired_driver",
     "snap_tpu_torch.cli",
     "snap_tpu_torch.__main__",
+    "snap_tpu_torch.parallel",
+    "snap_tpu_torch.parallel.mesh",
+    "snap_tpu_torch.apps",
+    "snap_tpu_torch.ops.probdist",
 ]
 
 _CHECK = """

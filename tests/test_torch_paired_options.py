@@ -267,13 +267,24 @@ def test_planned_pairs_vs_per_pair_byte_parity(tmp_path):
 
 
 def test_mesh_raises_naming_a13(tmp_path):
-    """A PairedEndAligner given a mesh raises, naming ROADMAP A13."""
+    """A PairedEndAligner runs on its mesh's primary device; given a mesh
+    over several processes it raises (SAM is written by one process, as
+    in snap_tpu)."""
+    import torch
+
     from snap_tpu_torch.align.pipeline import AlignParams
     from snap_tpu_torch.index.index import GenomeIndex
+    from snap_tpu_torch.parallel.mesh import make_mesh
 
     g = Genome(bases=np.random.default_rng(1).integers(0, 4, 4096).astype(np.uint8),
                contigs=[Contig(name="c", start=0, length=4096)])
     idx = GenomeIndex.build(g, seed_len=20, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tpd.PairedEndAligner(idx, AlignParams(seed_len=20), mesh=object())
+    cpu4 = [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match="one process"):
+        tpd.PairedEndAligner(idx, AlignParams(seed_len=20),
+                             mesh=make_mesh(2, 2, cpu4, ranks=[0, 0, 1, 1]))
+    mesh = make_mesh(2, 2, cpu4)
+    idx.to_mesh(mesh, 2)
+    al = tpd.PairedEndAligner(idx, AlignParams(seed_len=20), mesh=mesh)
+    assert al.device == mesh.primary and al.device.type == "cpu"
     assert tpd.PairedEndAligner(idx, AlignParams(seed_len=20)).device.type == "cpu"
