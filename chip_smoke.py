@@ -18,12 +18,15 @@ Phases, each printing one JSON line:
            inputs of every kernel launch of the phase-C step are kept.
   sam      the main path as a user runs it: 65536 simulated 100 bp reads
            (true position in each name) through `single <index> reads.fq
-           -o out.sam` on the card. First an untimed run with the CLI's
-           defaults (-b 1024) keeps the inputs of every kernel launch of
-           its first RECORD_STEPS steps and of every launch made by the
-           redo paths (score_candidates, score_rows, align_tier1), and
-           replays each against its plain version bit for bit. Then
-           timed runs at -b 1024 and -b 16384: wall time, FASTQ->SAM
+           -o out.sam` on the card. First an untimed run of the first
+           8192 reads with the CLI's defaults (-b 1024) keeps the inputs
+           of every kernel launch of its first RECORD_STEPS steps and of
+           every launch made by its redo paths (score_candidates,
+           score_rows, align_tier1), replays each against its plain
+           version bit for bit, and must give the timed run's records
+           of those reads. Then
+           timed runs at -b 1024 (every read) and -b 16384 (the first
+           16384 reads): wall time, FASTQ->SAM
            reads/s, AlignerStats' seconds reading/aligning/writing, the
            host's seconds in the device step (dispatch and winners wait)
            and in the redo paths' device calls, record and status
@@ -36,8 +39,8 @@ Phases, each printing one JSON line:
            replayed launch that differs from its plain version.
            --profile adds a cProfile of a -b 1024 run's host functions
            (a sam_profile line).
-  paired   the paired-end path as a user runs it: 32768 simulated pairs
-           of 2 x 100 bp (inserts normal(300, 30) clipped to [220, 600],
+  paired   the paired-end path as a user runs it: 16384 simulated pairs
+           (the first of 32768 drawn) of 2 x 100 bp (inserts normal(300, 30) clipped to [220, 600],
            the second end reverse complemented, the single-end error
            model, both true positions in the pair's name) through
            `paired <index> r1.fq r2.fq -o out.sam` at the CLI default
@@ -73,12 +76,12 @@ Phases, each printing one JSON line:
            beside them). The first batch's launches at -rl 256, -rl 400
            and 1500 bp in the long phase get the same comparison.
   long     long reads through `single` with the script's error model:
-           16384 reads of 250 bp at -rl 256 and 8192 of 400 bp at -rl 400
+           8192 reads of 250 bp at -rl 256 and 8192 of 400 bp at -rl 400
            (the CLI's -b 1024), and 256 reads of 1500 bp with
            test_long_reads.py's options (-rl 1500 -d 160 -i 200 -dp 0.15
            -mrl 100, -b 64), where the DP and affine rows take the
            long-row kernels (a block a row). An untimed run of the first
-           4 batches (for 1500 bp, the one run, whose first batch is
+           2 batches (for 1500 bp, the one run, whose first batch is
            replayed) keeps every launch, replayed bit for bit; the first
            batch's launches at -rl 256, -rl 400 and 1500 bp (their rows,
            plen and tlen spread printed) are timed as in the
@@ -88,50 +91,76 @@ Phases, each printing one JSON line:
   options  `single -om 3 -omax 2` and `single -dp 0.1` on the first 16384
            reads of the sam phase: every read takes the non-fast
            (two-phase) path (branches' non_fast), reads/s, accuracy.
-  bam      `single -so` to a .bam on the first 32768 of the sam phase's
+  bam      `single -so` to a .bam on the first 16384 of the sam phase's
            reads, in memory and
            through the -sm spill: the .bai is there, the port's BAM
            reader finds the records sorted, with the SAM run's count and
            names, the spill gives the same record bytes; the host's
            seconds in the sort and write (OutputWriter.close) and spills.
-  threads  `single -t 4` on the sam phase's reads: the range reader's
-           batches aligned as they come, as snap_tpu aligns them. Fails
-           unless the reader parsed every read, each has its primary
-           record, 98% of primary MAPQ >= 10 records lie within 30 bp
-           and every kernel launched; shows the records that differ
-           from the -t 1 run beside both runs' dp_overflow reads and
-           phase-C steps (a batch's make-up decides both).
-  mesh     the multi-device path on one card (parallel/mesh.py):
-           `single -ishards 2` on 16384 of the sam phase's reads (one
-           card makes it a 1 x 1 mesh, as in snap_tpu: the resharded
-           index, the monolithic mesh step, its dp_overflow redo), an
-           untimed run whose first 4 steps' and redo paths' launches are
-           replayed bit for bit, then a timed run (reads/s);
-           align_winners_sharded on a data = 1 x index = 2 mesh of
-           cuda:0 twice on one 16384-read batch, every launch replayed,
-           its winners on the first 1024 reads equal to the CPU mesh's
-           bit for bit; `paired -ishards 2` on 2048 pairs, its first
-           batches' launches replayed. Fails unless every kernel
-           launched on the mesh path.
+  threads  `single -t 4` on the first 16384 of the sam phase's reads:
+           the range reader's batches aligned as they come, as snap_tpu
+           aligns them. Fails unless the reader parsed every read, each
+           has its primary record, 98% of primary MAPQ >= 10 records lie
+           within 30 bp and every kernel launched; shows the records that
+           differ from the -t 1 run's records of the same reads beside
+           both runs' dp_overflow reads and phase-C steps (a batch's
+           make-up decides both).
   apps     `daemon` on a Unix socket in a thread, on the card: `single`
            sent through `command` writes the direct run's SAM; `roc` on
            it; `tofastq` gives back the FASTQ's bytes and `single` on
            them the same records; `depth` on a 200 kbp index.
-  card_vs_cpu  the first reads of each long and options run (128; 16
-           at 1500 bp; 512), of the -t 4 run (1024) and of the mesh
-           phase's `single -ishards 2` (512) and `paired -ishards 2`
-           (256 pairs), run on the card in their phase, again on the
-           CPU: at most 2 records differing, in MAPQ +-1 only. The CPU
-           runs come last, so that the index is loaded to host memory
-           once.
-Then a `seconds` line (each phase's wall seconds), one {"kernels": [...]}
+  hg38     the main paths at GRCh38 coordinates: the layout of GRCh38's
+           25 primary contigs at their lengths with SNAP's 2000-base
+           pads (3,088,338,401 bases, every location from 2^31 on past
+           the int32 range), sequenced in four windows (chr1's first
+           Mbp; 2 Mbp of chr13 centred on location 2^31; chr21 whole,
+           the e2e genome; chrY's last Mbp) and N elsewhere, written as
+           FASTA, indexed by `index` and loaded on the card (build and
+           load seconds, host peak RSS, card peak memory). 16384 reads
+           (a quarter from each window) and 64 more that straddle 2^31
+           through `single` (an untimed run of the first 4096 replays
+           its first 4 steps' and redo paths' launches bit for bit, then
+           the timed run), `single -so` (the sorted, duplicate-marked BAM
+           and .bai: sorted, and the SAM's records once sorted), 2048
+           pairs and 64 straddling ones through `paired` (recorded run
+           replayed, then timed). Fails unless 98% of primary MAPQ >= 10
+           records lie on their contig within 30 bp of their position,
+           overall and among the straddling reads.
+  mesh     the multi-device path on one card (parallel/mesh.py), on
+           the hg38 phase's index and inputs: `single -ishards 2` on
+           its first 8192 reads (one card makes it a 1 x 1 mesh, as in
+           snap_tpu: the resharded index, the monolithic mesh step, its
+           dp_overflow redo), an untimed run whose first 4 steps' and
+           redo paths' launches are replayed bit for bit, then a timed
+           run (reads/s); align_winners_sharded on a data = 1 x index =
+           2 mesh of cuda:0 twice on one 8192-read batch, every launch
+           replayed, its winners on the first 1024 reads equal to the
+           CPU mesh's bit for bit; `paired -ishards 2` on 2048 pairs,
+           its first batches' launches replayed. Fails unless every
+           kernel launched on the mesh path and the runs meet the hg38
+           phase's accuracy.
+  card_vs_cpu  the first reads of the sam run (1024), the paired run
+           (512 pairs), each long and options run (128; 16 at 1500 bp;
+           512), the -t 4 run (1024), the hg38 phase's `single` (512:
+           the straddling reads first), `single_fast` (512) and `paired`
+           (256 pairs, the straddling ones first) and the mesh phase's
+           `single -ishards 2` (512) and `paired -ishards 2` (256 pairs),
+           run on the card in their phase, again on the CPU: at most 2
+           records differing, in MAPQ +-1 only. The CPU runs go to a
+           worker process on the upper half of the host's cores as each
+           phase ends (CpuChecks), grouped by index so that each index
+           is loaded to host memory once, and run while the card phases
+           go on; the line comes when the last has ended.
+Then a `seconds` line (each phase's wall seconds, and the wait for the
+CPU checks after the kernels phase), one {"kernels": [...]}
 line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
 in the timed paired run; the sums over the launches of one 16384-read
 phase-C step of its device time, its per-call time, its plain version's
 time and its bound; the launches replayed; each long, options and mesh
-run's launches and the daemon's; the sums over the first batch's
-launches at -rl 256, -rl 400 and 1500 bp), the card's name and power
-limit, and as the last line
+run's launches and the daemon's; the hg38 and mesh runs' launches and
+the launches they replayed; the sums over the first batch's launches at
+-rl 256, -rl 400 and 1500 bp), the card's name and power limit, and as
+the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when there is no CUDA device or when
@@ -695,10 +724,19 @@ READS, READ_LEN, MAX_LEN = 16384, 100, 128
 CHECK_READS = 1024      # card-vs-CPU batch
 
 
-def gen_repeat_genome(rng, glen: int, repeat_frac: float) -> np.ndarray:
+REPEAT_CLASSES = ("unique", "sine", "line", "microsatellite")
+
+
+def gen_repeat_genome(rng, glen: int, repeat_frac: float,
+                      classes: np.ndarray | None = None) -> np.ndarray:
     """Synthetic genome with planted repeats (the model of bench.py's
     _gen_repeat_genome): ~300 bp SINE-like units with 1% divergence,
-    6 kb LINE-like units, and tandem microsatellites."""
+    6 kb LINE-like units, and tandem microsatellites, one family of
+    each kind, copies in proportion to glen. With `classes` ([glen]
+    uint8), each base's last planted kind is written there (an index of
+    REPEAT_CLASSES); the draws are the same."""
+    if classes is None:
+        classes = np.zeros(glen, np.uint8)
     seq = rng.integers(0, 4, size=glen).astype(np.uint8)
     budget = int(glen * repeat_frac)
     alu = rng.integers(0, 4, size=300).astype(np.uint8)
@@ -708,38 +746,57 @@ def gen_repeat_genome(rng, glen: int, repeat_frac: float) -> np.ndarray:
         d = rng.random(300) < 0.01
         u[d] = rng.integers(0, 4, int(d.sum()))
         seq[p : p + 300] = u
+        classes[p : p + 300] = 1
     line = rng.integers(0, 4, size=6000).astype(np.uint8)
     for _ in range(max(1, budget // 2 // 6000)):
         p = int(rng.integers(0, glen - 6000))
         seq[p : p + 6000] = line
+        classes[p : p + 6000] = 2
     for _ in range(max(1, glen // 20000)):
         unit = rng.integers(0, 4, size=4).astype(np.uint8)
         reps = int(rng.integers(20, 60))
         p = int(rng.integers(0, glen - 4 * reps))
         seq[p : p + 4 * reps] = np.tile(unit, reps)
+        classes[p : p + 4 * reps] = 3
     return seq
 
 
 def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 100):
+    write_fasta_contigs(path, [(name, codes)], width)
+
+
+def write_fasta_contigs(path: str, contigs, width: int = 100):
+    """A FASTA of (name, base codes) contigs, `width` bases a line."""
     from snap_tpu_torch.constants import BASE_DECODE
 
-    text = BASE_DECODE[codes].tobytes()
+    decode = BASE_DECODE.tobytes().ljust(256, b"N")  # a bytes.translate table
     with open(path, "wb") as f:
-        f.write(b">" + name.encode() + b"\n")
-        for i in range(0, len(text), width):
-            f.write(text[i : i + width] + b"\n")
+        for name, codes in contigs:
+            f.write(b">" + name.encode() + b"\n")
+            text = np.frombuffer(np.ascontiguousarray(codes, np.uint8).tobytes()
+                                 .translate(decode), np.uint8)
+            full = text.shape[0] // width
+            lines = np.empty((full, width + 1), np.uint8)
+            lines[:, :width] = text[: full * width].reshape(full, width)
+            lines[:, width] = ord("\n")
+            f.write(lines)
+            if text.shape[0] > full * width:
+                f.write(text[full * width :].tobytes() + b"\n")
 
 
-def simulate_reads(rng, codes: np.ndarray, contig_start: int, n: int, L: int):
+def simulate_reads(rng, codes: np.ndarray, contig_start: int, n: int, L: int,
+                   starts: np.ndarray | None = None):
     """n reads of L bases: 1% substitutions, a 1-3 bp deletion or
-    insertion in a quarter of them, half from the reverse strand.
+    insertion in a quarter of them, half from the reverse strand, from
+    `starts` (0-based positions in codes; drawn uniformly when None).
     Returns (codes [n, L] uint8, qual bytes [n, L] uint8, the genome
     location one past the sampled reference span [n] int64, the
     span's first base as a 0-based contig position [n] int64)."""
     reads = np.empty((n, L), np.uint8)
     true_end = np.empty(n, np.int64)
     span = L + 8
-    starts = rng.integers(0, codes.size - span, n)
+    if starts is None:
+        starts = rng.integers(0, codes.size - span, n)
     for i in range(n):
         s = int(starts[i])
         r = codes[s : s + span].copy()
@@ -783,7 +840,8 @@ def counted(run) -> tuple[object, dict]:
     for w in ws.values():
         w.launches = 0
     out = run()
-    torch.cuda.synchronize()
+    if torch.cuda.is_initialized():  # a CPU check's worker never starts CUDA
+        torch.cuda.synchronize()
     return out, {n: w.launches for n, w in ws.items()}
 
 
@@ -984,8 +1042,10 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
 # ------------------------------------------------------------ FASTQ -> SAM
 
 SAM_READS = 65_536
-SAM_RUNS = (None, 16_384)      # -b of each timed run: the CLI's default (1024), 16384
+SUB_READS = 16_384             # the first reads: the -b 16384, -so and -t 4 runs
+SAM_RUNS = ((None, SAM_READS), (16_384, SUB_READS))  # (-b, reads) of each timed run
 SAM_CHECK_READS = 1024         # card-vs-CPU SAM
+SAM_RECORD_READS = 8 * 1024    # the untimed recording run's reads
 # the device calls of the host redo paths: the wide redo of truncated and
 # edge-indel rows (score_candidates, then score_rows in two_phase_merge)
 # and the dp_overflow redo (align_tier1, then score_rows)
@@ -1026,6 +1086,7 @@ def sam_summary(path: str) -> dict:
             else:
                 out["mapq_lt_10"] += 1
     out["within_30bp_share"] = out["mapq10_within_30bp"] / max(1, out["mapq_ge_10"])
+    out["shares"] = {"all": out["within_30bp_share"]}
     return out
 
 
@@ -1237,61 +1298,55 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
     names = [b"r%d_%d" % (i, s + 1) for i, s in enumerate(starts.tolist())]
     fq = os.path.join(workdir, "sam_reads.fq")
     write_fastq(fq, reads, quals, names)
+    fq_sub = os.path.join(workdir, "sam_sub.fq")
+    write_fastq(fq_sub, reads[:SUB_READS], quals[:SUB_READS], names[:SUB_READS])
     idx_dir = ctx["idx_dir"]
     t0 = time.time()
     _load_index_cached(idx_dir, "cuda")   # cached for the runs below
     load_s = time.time() - t0
 
-    # an untimed run with the CLI's defaults first: it keeps the inputs of
-    # every launch of the first RECORD_STEPS steps and of every launch
-    # the redo paths make, and takes the first-use costs off the timed runs
+    # an untimed run of the first SAM_RECORD_READS reads with the CLI's
+    # defaults first: it keeps the inputs of every launch of the first
+    # RECORD_STEPS steps and of every launch its redo paths make, and takes
+    # the first-use costs off the timed runs
     step_calls = {name: [] for name in KERNEL_SOURCES}
     redo_calls = {name: [] for name in KERNEL_SOURCES}
+    n_rec = SAM_RECORD_READS
+    fq_rec = os.path.join(workdir, "sam_rec.fq")
+    write_fastq(fq_rec, reads[:n_rec], quals[:n_rec], names[:n_rec])
     rec_out = os.path.join(workdir, "recorded.sam")
+    t0 = time.time()
     with recording(step_calls, inside={"align_winners_device": RECORD_STEPS}), \
             recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
-        rec = run_single(["single", idx_dir, fq, "-o", rec_out])
+        rec = run_single(["single", idx_dir, fq_rec, "-o", rec_out])
     replays = {"step": replay_launches(step_calls, "-b 1024 step"),
                "redo": replay_launches(redo_calls, "redo path")}
+    del step_calls, redo_calls
+    record_s = time.time() - t0
 
     runs = []
-    for k, b in enumerate(SAM_RUNS):
+    for k, (b, n) in enumerate(SAM_RUNS):
         out = os.path.join(workdir, f"out{k}.sam")
-        argv = ["single", idx_dir, fq, "-o", out] + (["-b", str(b)] if b else [])
+        argv = (["single", idx_dir, fq if n == SAM_READS else fq_sub, "-o", out]
+                + (["-b", str(b)] if b else []))
         r = run_single(argv)
-        r["batch"] = b or 1024
-        r["reads_per_s"] = SAM_READS / r["wall_s"]
-        r["sam"] = sam_summary(out)
+        r["batch"], r["reads"] = b or 1024, n
+        check_run("sam", f"-b {r['batch']}", r, out, n)
         runs.append(r)
-        if r["sam"]["primary"] != SAM_READS:
-            fail("sam", f"-b {r['batch']}: {r['sam']['primary']} primary records "
-                        f"for {SAM_READS} reads")
-        if r["sam"]["within_30bp_share"] < 0.98:
-            fail("sam", f"-b {r['batch']}: only {r['sam']['within_30bp_share']:.4f} "
-                        "of primary MAPQ >= 10 records within 30 bp")
-        missing = [n for n in KERNEL_SOURCES if r["launches"].get(n, 0) == 0]
-        if missing:
-            fail("sam", f"-b {r['batch']}: no launch of {missing}: {r['launches']}")
-    recorded = {"wall_s": rec["wall_s"], "launches": rec["launches"],
+    # the serial reader's first batches are the same reads in both runs
+    rec_recs = sam_records(rec_out)
+    recorded = {"reads": n_rec, "wall_s": rec["wall_s"], "launches": rec["launches"],
+                "with_replays_s": record_s,
                 "same_records_as_timed_run":
-                    sam_records(rec_out) == sam_records(os.path.join(workdir, "out0.sam")),
-                "same_launches_as_timed_run": rec["launches"] == runs[0]["launches"]}
+                    rec_recs == sam_records(os.path.join(workdir, "out0.sam"))[:len(rec_recs)]}
     if profile:
         out = os.path.join(workdir, "out_profile.sam")
         emit({"phase": "sam_profile", "ok": True,
               **profile_single(["single", idx_dir, fq, "-o", out])})
 
-    # the first reads on the card and on the CPU (the CPU run loads the
-    # index to host memory, so it comes last)
-    fq1 = os.path.join(workdir, "check.fq")
-    write_fastq(fq1, reads[:SAM_CHECK_READS], quals[:SAM_CHECK_READS],
-                names[:SAM_CHECK_READS])
-    recs = {}
-    for dev in ("cuda", "cpu"):
-        out = os.path.join(workdir, f"check_{dev}.sam")
-        r = run_single(["single", idx_dir, fq1, "-o", out], device=dev)
-        recs[dev] = (sam_records(out), r["wall_s"])
-    diffs = card_vs_cpu("sam", recs["cuda"][0], recs["cpu"][0])
+    # the first reads on the card; on the CPU in CpuChecks
+    check = card_check("sam", "sam", lambda f, o: ["single", idx_dir, f, "-o", o], workdir,
+                       reads, quals, names, SAM_CHECK_READS)
 
     emit({
         "phase": "sam", "ok": True, "reads": SAM_READS, "read_len": READ_LEN,
@@ -1300,17 +1355,16 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
                            "sam_formatter": native.has_sam_formatter(),
                            "build_error": native.BUILD_ERROR},
         "recorded_run": recorded, "replays": replays,
-        "card_vs_cpu": {"reads": SAM_CHECK_READS, "records_differ": len(diffs),
-                        "diffs": diffs, "cpu_wall_s": recs["cpu"][1],
-                        "card_wall_s": recs["cuda"][1]},
     })
     return {"launches": runs[0]["launches"], "replays": replays, "fq": fq,
+            "fq_sub": fq_sub,
             "sam": os.path.join(workdir, "out0.sam"), "run": runs[0],
-            "reads": (reads, quals, names)}
+            "reads": (reads, quals, names), "checks": [check]}
 
 # ------------------------------------------------------- paired FASTQ -> SAM
 
-PAIRS = 32_768
+PAIRS_DRAWN = 32_768           # pairs drawn (the draw of earlier calls kept)
+PAIRS = 16_384                 # the first of them: the timed run
 PAIRED_RECORD_PAIRS = 4_096    # the untimed recording run
 PAIRED_RECORD_BATCHES = 4      # batches of it whose every launch is replayed
 PAIRED_CHECK_PAIRS = 512       # card-vs-CPU SAM
@@ -1321,10 +1375,12 @@ PAIRED_METHODS = ("_device_intersect", "_redo_overflow_pairs", "_fix_edge_indels
 PAIRED_PIPELINE = ("score_candidates", "two_phase_merge")
 
 
-def simulate_pairs(rng, codes: np.ndarray, n: int, L: int):
+def simulate_pairs(rng, codes: np.ndarray, n: int, L: int,
+                   starts: np.ndarray | None = None):
     """n pairs of L-base ends from inserts drawn from normal(300, 30)
     clipped to [220, 600]: the first end forward from the fragment's
-    start, the second reverse complemented from its end, each with
+    start (`starts`, 0-based positions in codes; drawn uniformly when
+    None), the second reverse complemented from its end, each with
     simulate_reads' errors (1% substitutions, a 1-3 bp deletion or
     insertion in a quarter of the ends, phred normal(36, 5)). Returns
     (ends [2, n, L] uint8, quals [2, n, L], the 1-based leftmost
@@ -1332,7 +1388,8 @@ def simulate_pairs(rng, codes: np.ndarray, n: int, L: int):
     ends = np.empty((2, n, L), np.uint8)
     pos = np.empty((2, n), np.int64)
     inserts = np.clip(rng.normal(300, 30, n).round(), 220, 600).astype(np.int64)
-    starts = rng.integers(0, codes.size - 700, n)
+    if starts is None:
+        starts = rng.integers(0, codes.size - 700, n)
     for i in range(n):
         for e in range(2):
             kind = int(rng.integers(0, 8))
@@ -1400,7 +1457,9 @@ def run_paired(argv: list[str], device: str = "cuda", phase: str = "paired") -> 
 
     cls = paired_driver.PairedEndAligner
     owners = [(cls, n) for n in PAIRED_METHODS] + [(pipeline, n) for n in PAIRED_PIPELINE]
-    torch.cuda.reset_peak_memory_stats()
+    card = device != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
     run, aligner, acc = run_cli(phase, argv, cls, "align_files", owners, device)
     wall = run["wall_s"]
     sec = lambda *names: sum(acc.get(n, [0.0])[0] for n in names)
@@ -1412,7 +1471,7 @@ def run_paired(argv: list[str], device: str = "cuda", phase: str = "paired") -> 
                          intersect_overflow_pairs=st.intersect_overflow_pairs)
     run["mesh"] = None if aligner.mesh is None else dict(aligner.mesh.shape)
     run.update({
-        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9 if card else None,
         **{f"{k}_s": v for k, v in parts.items()},
         "shares_of_wall": {k: v / wall for k, v in parts.items()},
     })
@@ -1428,7 +1487,7 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
 
     t_phase = time.time()
     rng = np.random.default_rng(seed + 2)
-    ends, quals, pos = simulate_pairs(rng, ctx["codes"], PAIRS, READ_LEN)
+    ends, quals, pos = simulate_pairs(rng, ctx["codes"], PAIRS_DRAWN, READ_LEN)
     names = [b"p%d_%d_%d" % (i, a, b) for i, (a, b) in enumerate(zip(*pos.tolist()))]
 
     def write_pairs(tag: str, n: int) -> tuple[str, str]:
@@ -1477,15 +1536,10 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
     if missing:
         fail("paired", f"no launch of {missing} in the timed run: {run['launches']}")
 
-    # the first pairs on the card and on the CPU (the CPU run loads the
-    # index to host memory, so it comes last)
-    fq1 = write_pairs("check", PAIRED_CHECK_PAIRS)
-    recs = {}
-    for dev in ("cuda", "cpu"):
-        o = os.path.join(workdir, f"pcheck_{dev}.sam")
-        r = run_paired(["paired", idx_dir, *fq1, "-o", o], device=dev)
-        recs[dev] = (sam_records(o), r["wall_s"])
-    diffs = card_vs_cpu("paired", recs["cuda"][0], recs["cpu"][0])
+    # the first pairs on the card; on the CPU in CpuChecks
+    check = paired_card_check("paired", "paired",
+                              lambda f1, f2, o: ["paired", idx_dir, f1, f2, "-o", o],
+                              workdir, (ends, quals, names), PAIRED_CHECK_PAIRS)
 
     emit({
         "phase": "paired", "ok": True, "pairs": PAIRS, "read_len": READ_LEN,
@@ -1496,18 +1550,19 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
         "recorded_run": {"pairs": PAIRED_RECORD_PAIRS, "wall_s": rec["wall_s"],
                          "launches": rec["launches"], "branches": rec["branches"]},
         "replays": replays,
-        "card_vs_cpu": {"pairs": PAIRED_CHECK_PAIRS, "records_differ": len(diffs),
-                        "diffs": diffs, "cpu_wall_s": recs["cpu"][1],
-                        "card_wall_s": recs["cuda"][1]},
         "phase_s": time.time() - t_phase,
     })
-    return {"launches": run["launches"], "replays": replays}
+    return {"launches": run["launches"], "replays": replays,
+            "pairs_per_s": run["pairs_per_s"], "checks": [check]}
 
 
 # --------------------------------------------- long reads, options, BAM, -t
 
-LONG_RUNS = ((250, 256, 16_384), (400, 400, 8_192))  # read length, -rl, reads
-LONG_RECORD_BATCHES = 4        # batches of each recording run whose launches are replayed
+# read length, -rl, reads drawn (one rng for every run: the -rl 256 run keeps
+# the draw of 16,384 reads, so each run's reads stay those of earlier
+# calls), reads run
+LONG_RUNS = ((250, 256, 16_384, 8_192), (400, 400, 8_192, 8_192))
+LONG_RECORD_BATCHES = 2        # batches of each recording run whose launches are replayed
 LONG_CHECK_READS = 128         # card-vs-CPU SAM
 XL_LEN, XL_READS, XL_BATCH, XL_CHECK_READS = 1500, 256, 64, 16
 XL_REPLAY_BATCHES = 1          # batches of the 1500 bp run whose launches are replayed
@@ -1515,8 +1570,8 @@ XL_OPTS = ["-rl", "1500", "-d", "160", "-i", "200", "-dp", "0.15", "-mrl", "100"
 OPTION_RUNS = {"om": ["-om", "3", "-omax", "2"], "dp": ["-dp", "0.1"]}
 OPTIONS_READS = 16_384
 OPTIONS_CHECK_READS = 512
-BAM_READS = 32_768             # the first half of the sam phase's reads
-BAM_SPILL_GB = "0.002"         # -sm: 2 MiB of records a sorted block, ~5 blocks
+BAM_READS = SUB_READS          # the sam phase's first reads
+BAM_SPILL_GB = "0.001"         # -sm: 1 MiB of records a sorted block, ~5 blocks
 MIN_WITHIN_30BP = 0.98         # share of primary MAPQ >= 10 records near their origin
 
 
@@ -1535,17 +1590,21 @@ def recorded_run(phase: str, argv: list[str], batches: int):
     return run, calls, first
 
 
-def check_run(phase: str, what: str, run: dict, out: str, n: int, want: list) -> dict:
-    """The SAM summary of a run of n reads; fails unless every read has
-    its primary record, 98% of primary MAPQ >= 10 records lie within
-    30 bp of their true position, and each kernel of `want` launched."""
-    summ = sam_summary(out)
+def check_run(phase: str, what: str, run: dict, out: str, n: int,
+              summary=sam_summary) -> dict:
+    """The truth summary of a run of n reads (`summary(out)`: its primary
+    records, and per subset of them the share of MAPQ >= 10 records at
+    their truth); fails unless every read has its primary record, each
+    subset's share is MIN_WITHIN_30BP or more, and every kernel
+    launched."""
+    summ = summary(out)
     if summ["primary"] != n:
         fail(phase, f"{what}: {summ['primary']} primary records for {n} reads")
-    if summ["within_30bp_share"] < MIN_WITHIN_30BP:
-        fail(phase, f"{what}: only {summ['within_30bp_share']:.4f} of primary MAPQ >= 10 "
-                    "records within 30 bp")
-    missing = [k for k in want if run["launches"].get(k, 0) == 0]
+    for k, share in summ["shares"].items():
+        if share < MIN_WITHIN_30BP:
+            fail(phase, f"{what}: only {share:.4f} of {k} primary MAPQ >= 10 records "
+                        f"at their truth: {summ}")
+    missing = [k for k in KERNEL_SOURCES if run["launches"].get(k, 0) == 0]
     if missing:
         fail(phase, f"{what}: no launch of {missing}: {run['launches']}")
     run["reads_per_s"] = n / run["wall_s"]
@@ -1556,7 +1615,7 @@ def check_run(phase: str, what: str, run: dict, out: str, n: int, want: list) ->
 def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
                n: int) -> dict:
     """The first n reads through argv_of(fastq, out) on the card; the
-    same on the CPU runs in phase_card_vs_cpu."""
+    same on the CPU runs in CpuChecks."""
     fq1 = os.path.join(workdir, f"{tag}_check.fq")
     write_fastq(fq1, reads[:n], quals[:n], names[:n])
     o = os.path.join(workdir, f"{tag}_check_cuda.sam")
@@ -1564,6 +1623,22 @@ def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
     o_cpu = os.path.join(workdir, f"{tag}_check_cpu.sam")
     return {"phase": phase, "tag": tag, "reads": n, "cpu_argv": argv_of(fq1, o_cpu),
             "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]}
+
+
+def paired_card_check(phase: str, tag: str, argv_of, workdir: str, pairs, n: int) -> dict:
+    """The first n pairs (`pairs`: ends [2, P, L], quals, names) through
+    argv_of(fastq 1, fastq 2, out) on the card; the same on the CPU runs
+    in CpuChecks."""
+    ends, quals, names = pairs
+    fqs = [os.path.join(workdir, f"{tag}_check_{e + 1}.fq") for e in range(2)]
+    for e in range(2):
+        write_fastq(fqs[e], ends[e, :n], quals[e, :n], names[:n])
+    o = os.path.join(workdir, f"{tag}_check_cuda.sam")
+    r = run_paired(argv_of(*fqs, o), phase=phase)
+    o_cpu = os.path.join(workdir, f"{tag}_check_cpu.sam")
+    return {"phase": phase, "tag": tag, "reads": 2 * n, "paired": True,
+            "cpu_argv": argv_of(*fqs, o_cpu), "cpu_sam": o_cpu, "card": sam_records(o),
+            "card_wall_s": r["wall_s"]}
 
 
 def launch_spread(calls: dict) -> dict:
@@ -1610,12 +1685,13 @@ def phase_long(seed: int, ctx: dict, workdir: str, base: dict) -> tuple[dict, li
     idx_dir = ctx["idx_dir"]
     _load_index_cached(idx_dir, "cuda")
     runs, checks = {}, []
-    for read_len, rl, n in (*LONG_RUNS, (XL_LEN, XL_LEN, XL_READS)):
+    for read_len, rl, drawn, n in (*LONG_RUNS, (XL_LEN, XL_LEN, XL_READS, XL_READS)):
         t_run = time.time()
         xl = read_len == XL_LEN
         tag = f"rl{rl}"
-        reads, quals, _, starts = simulate_reads(rng, ctx["codes"], ctx["contig_start"], n,
-                                                 read_len)
+        reads, quals, _, starts = simulate_reads(rng, ctx["codes"], ctx["contig_start"],
+                                                 drawn, read_len)
+        reads, quals, starts = reads[:n], quals[:n], starts[:n]
         names = [b"l%d_%d" % (i, s + 1) for i, s in enumerate(starts.tolist())]
         fq = os.path.join(workdir, f"{tag}.fq")
         write_fastq(fq, reads, quals, names)
@@ -1629,21 +1705,26 @@ def phase_long(seed: int, ctx: dict, workdir: str, base: dict) -> tuple[dict, li
         rec, calls, first = recorded_run(
             "long", ["single", idx_dir, fq_rec, "-o", out_rec, *opts, *bopt],
             XL_REPLAY_BATCHES if xl else LONG_RECORD_BATCHES)
-        replays = replay_launches(calls, f"{tag} batches", "long")
+        # at 1500 bp the replayed batches are the first batch, which
+        # time_launches below holds to the plain versions bit for bit
+        replays = None if xl else replay_launches(calls, f"{tag} batches", "long")
+        del calls
         if xl:
             run, out = rec, out_rec
         else:
             out = os.path.join(workdir, f"{tag}.sam")
             run = run_single(["single", idx_dir, fq, "-o", out, *opts], phase="long")
-        check_run("long", tag, run, out, n, list(KERNEL_SOURCES))
+        check_run("long", tag, run, out, n)
+        spread = launch_spread(first)
+        rows = time_launches(first, base, phase="long", plain_reps=0)
+        timed = {k: launch_sums(v) for k, v in rows.items() if v}
+        if xl:
+            replays = {k: {"launches": len(v),
+                           "max_abs_err": max((r["max_abs_err"] for r in v), default=0.0)}
+                       for k, v in rows.items()}
         empty = [k for k in KERNEL_SOURCES if replays[k]["launches"] == 0]
         if empty:
             fail("long", f"{tag}: no launch of {empty} recorded in the first batches")
-        timed, spread = {}, {}
-        if rl in (256, 400, XL_LEN):
-            spread = launch_spread(first)
-            timed = {k: launch_sums(v) for k, v in
-                     time_launches(first, base, phase="long", plain_reps=0).items() if v}
         n_chk = XL_CHECK_READS if xl else LONG_CHECK_READS
         argv_of = lambda f, o, opts=opts, n_chk=n_chk: (
             ["single", idx_dir, f, "-o", o, *opts, "-b", str(n_chk)])
@@ -1676,7 +1757,7 @@ def phase_options(ctx: dict, sam: dict, workdir: str) -> tuple[dict, list]:
     for name, opts in OPTION_RUNS.items():
         out = os.path.join(workdir, f"options_{name}.sam")
         run = run_single(["single", idx_dir, fq, "-o", out, *opts], phase="options")
-        check_run("options", name, run, out, n, list(KERNEL_SOURCES))
+        check_run("options", name, run, out, n)
         if run["branches"].get("non_fast") != n:
             fail("options", f"{name}: the non-fast path took {run['branches'].get('non_fast')} "
                             f"of {n} reads")
@@ -1717,9 +1798,8 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
 
     idx_dir = ctx["idx_dir"]
     _load_index_cached(idx_dir, "cuda")
-    reads, quals, names = sam["reads"]
-    fq = os.path.join(workdir, "bam_reads.fq")
-    write_fastq(fq, reads[:BAM_READS], quals[:BAM_READS], names[:BAM_READS])
+    names = sam["reads"][2]
+    fq = sam["fq_sub"]
     sam_names = sorted(names[:BAM_READS])
     owners = [(output.OutputWriter, "close"), (output.OutputWriter, "_spill_block")]
     res = {}
@@ -1760,26 +1840,29 @@ def phase_bam(ctx: dict, sam: dict, workdir: str) -> dict:
 
 
 THREADS = 4
+THREADS_READS = SUB_READS      # the sam phase's first reads
 THREADS_CHECK_READS = 1024     # card-vs-CPU SAM of -t 4
 
 
 def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
-    """`single -t 4` on the sam phase's reads. The parse threads' range
-    batches are aligned as they come, as snap_tpu aligns them, so where
-    a batch-level path (the DP tier's overflow, the phase-C switch)
-    turns on a batch's make-up the records may differ from the sam
-    phase's -t 1 run: they are counted and shown beside both runs'
-    dp_overflow reads and phase-C steps. Fails unless the range reader
-    parsed every read, each has its primary record, 98% of MAPQ >= 10
-    records lie within 30 bp and every kernel launched. Returns the
-    card-vs-CPU check of its first reads still to run."""
+    """`single -t 4` on the first THREADS_READS reads of the sam phase.
+    The parse threads' range batches are aligned as they come, as
+    snap_tpu aligns them, so where a batch-level path (the DP tier's
+    overflow, the phase-C switch) turns on a batch's make-up the records
+    may differ from the sam phase's -t 1 run's records of the same
+    reads: they are counted and shown beside both runs' dp_overflow
+    reads and phase-C steps (the -t 1 run's over all SAM_READS reads).
+    Fails unless the range reader parsed every read, each has its
+    primary record, 98% of MAPQ >= 10 records lie within 30 bp and every
+    kernel launched. Returns the card-vs-CPU check of its first reads
+    still to run."""
     idx_dir = ctx["idx_dir"]
     out = os.path.join(workdir, "t4.sam")
-    run = run_single(["single", idx_dir, sam["fq"], "-o", out, "-t", str(THREADS)],
+    run = run_single(["single", idx_dir, sam["fq_sub"], "-o", out, "-t", str(THREADS)],
                      phase="threads")
-    if run["branches"].get("reader_range_split") != SAM_READS:
+    if run["branches"].get("reader_range_split") != THREADS_READS:
         fail("threads", f"the -t {THREADS} reader parsed {run['branches']}")
-    check_run("threads", f"t{THREADS}", run, out, SAM_READS, list(KERNEL_SOURCES))
+    check_run("threads", f"t{THREADS}", run, out, THREADS_READS)
 
     def by_name(path):
         recs = {}
@@ -1787,7 +1870,8 @@ def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
             recs.setdefault(ln.split(b"\t", 1)[0], []).append(ln)
         return recs
 
-    t4, t1 = by_name(out), by_name(sam["sam"])
+    t4 = by_name(out)
+    t1 = {k: v for k, v in by_name(sam["sam"]).items() if k in t4}
     differ = sorted(k for k in t1.keys() | t4.keys() if t1.get(k) != t4.get(k))
     t1_run = sam["run"]
     res = {
@@ -1801,29 +1885,386 @@ def phase_threads(ctx: dict, sam: dict, workdir: str) -> list:
         "steps": {"t1": t1_run["steps"], f"t{THREADS}": run["steps"]},
         "batches": {"t1": t1_run["branches"].get("batches"),
                     f"t{THREADS}": run["branches"].get("batches")},
+        "t1_reads": SAM_READS,
         "branches": run["branches"], "sam": run["sam"],
     }
-    emit({"phase": "threads", "ok": True, "reads": SAM_READS, **res})
+    emit({"phase": "threads", "ok": True, "reads": THREADS_READS, **res})
     reads, quals, names = sam["reads"]
     argv_of = lambda f, o: ["single", idx_dir, f, "-o", o, "-t", str(THREADS)]
     return [card_check("threads", f"t{THREADS}", argv_of, workdir, reads, quals, names,
                        THREADS_CHECK_READS)]
 
 
+# ---------------------------------------------------- GRCh38 coordinates
+
+# GRCh38's primary assembly in its FASTA order, with each contig's length
+# (GCA_000001405.15, chr1-22, X, Y, M). SNAP's layout puts 2,000 pad
+# bases before each contig and after the last: 3,088,338,401 bases, of
+# which every location from 2^31 (70,414,666 bp into chr13) on is past
+# the int32 range.
+HG38_CONTIGS = (
+    ("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+    ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
+    ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
+    ("chr10", 133_797_422), ("chr11", 135_086_622), ("chr12", 133_275_309),
+    ("chr13", 114_364_328), ("chr14", 107_043_718), ("chr15", 101_991_189),
+    ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
+    ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
+    ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415),
+    ("chrM", 16_569),
+)
+HG38_PAD = 2000
+HG38_BP = sum(n for _, n in HG38_CONTIGS) + HG38_PAD * (len(HG38_CONTIGS) + 1)
+TWO31 = 1 << 31
+HG38_WINDOW_BP = 1_000_000     # windows (a) and (d); (b) is twice as long
+HG38_STRADDLE = 64             # reads (and pairs) placed across 2^31
+
+
+def hg38_starts() -> dict:
+    """Each contig's first absolute location in SNAP's layout."""
+    out, pos = {}, 0
+    for name, n in HG38_CONTIGS:
+        pos += HG38_PAD
+        out[name] = pos
+        pos += n
+    return out
+
+
+def hg38_windows(seed: int, chr21: np.ndarray) -> list:
+    """The sequenced windows of the layout, as (contig, 0-based contig
+    offset, codes): (a) chr1's first 1 Mbp, (b) 2 Mbp of chr13 centred
+    on absolute 2^31, (c) chr21 from its start (`chr21`: the e2e
+    genome, the whole of chr21 at the default length), (d) chrY's last
+    1 Mbp; (a), (b) and (d) from the same 25%-repeat model."""
+    rng = np.random.default_rng(seed + 8)
+    w = HG38_WINDOW_BP
+    b_off = TWO31 - hg38_starts()["chr13"] - w
+    return [
+        ("chr1", 0, gen_repeat_genome(rng, w, 0.25)),
+        ("chr13", b_off, gen_repeat_genome(rng, 2 * w, 0.25)),
+        ("chr21", 0, chr21),
+        ("chrY", dict(HG38_CONTIGS)["chrY"] - w, gen_repeat_genome(rng, w, 0.25)),
+    ]
+
+
+def write_hg38_fasta(path: str, windows: list) -> None:
+    """The layout's FASTA: every contig at its GRCh38 length, N outside
+    the windows."""
+    by_contig = {}
+    for name, off, codes in windows:
+        by_contig.setdefault(name, []).append((off, codes))
+
+    def contigs():
+        for name, n in HG38_CONTIGS:
+            seq = np.full(n, 4, np.uint8)
+            for off, codes in by_contig.get(name, []):
+                seq[off : off + codes.size] = codes
+            yield name, seq
+
+    write_fasta_contigs(path, contigs())
+
+
+def hg38_reads(rng, windows: list, n: int, L: int):
+    """HG38_STRADDLE reads whose span starts 1-99 bp before 2^31, then n
+    reads, a quarter from each window, in a random order. Names end in
+    _<contig>_<1-based position>; the straddling ones start with s.
+    Returns (reads, quals, names)."""
+    starts = hg38_starts()
+    name_b, off_b, codes_b = windows[1]
+    st = TWO31 - rng.integers(1, 100, HG38_STRADDLE) - starts[name_b] - off_b
+    r0, q0, _, s0 = simulate_reads(rng, codes_b, starts[name_b] + off_b,
+                                   HG38_STRADDLE, L, starts=st)
+    names = [b"s%d_%s_%d" % (i, name_b.encode(), off_b + p + 1)
+             for i, p in enumerate(s0.tolist())]
+    rest = []
+    for name, off, codes in windows:
+        r, q, _, s = simulate_reads(rng, codes, starts[name] + off, n // len(windows), L)
+        rest += [(r[i], q[i], b"%s_%d" % (name.encode(), off + p + 1))
+                 for i, p in enumerate(s.tolist())]
+    order = rng.permutation(len(rest))
+    reads = np.concatenate([r0, np.stack([rest[i][0] for i in order])])
+    quals = np.concatenate([q0, np.stack([rest[i][1] for i in order])])
+    names += [b"h%d_%s" % (k, rest[i][2]) for k, i in enumerate(order)]
+    return reads, quals, names
+
+
+def hg38_pairs(rng, windows: list, n: int, L: int):
+    """HG38_STRADDLE pairs whose fragment starts 180-240 bp before 2^31
+    (the first end wholly below it, the second across it or above it),
+    then n pairs, a quarter from each window, in a random order. Names
+    end in _<contig>_<end 1's position>_<end 2's>; the straddling ones
+    start with q. Returns (ends [2, m, L], quals, names).
+
+    Window (b) of the default seed holds a 210 bp (GGCT)n microsatellite
+    at 2^31 + 93; an end wholly inside it has equally good placements
+    4 bp apart (both packages put such ends 36-44 bp off, MAPQ 70), so
+    the fragments start early enough that second ends seldom lie wholly
+    inside it at the inserts' spread."""
+    name_b, off_b, codes_b = windows[1]
+    st = TWO31 - rng.integers(180, 241, HG38_STRADDLE) - hg38_starts()[name_b] - off_b
+    e0, q0, p0 = simulate_pairs(rng, codes_b, HG38_STRADDLE, L, starts=st)
+    names = [b"q%d_%s_%d_%d" % (i, name_b.encode(), off_b + a, off_b + b)
+             for i, (a, b) in enumerate(zip(*p0.tolist()))]
+    rest = []
+    for name, off, codes in windows:
+        e, q, p = simulate_pairs(rng, codes, n // len(windows), L)
+        rest += [(e[:, i], q[:, i], b"%s_%d_%d" % (name.encode(), off + a, off + b))
+                 for i, (a, b) in enumerate(zip(*p.tolist()))]
+    order = rng.permutation(len(rest))
+    ends = np.concatenate([e0, np.stack([rest[i][0] for i in order], axis=1)], axis=1)
+    quals = np.concatenate([q0, np.stack([rest[i][1] for i in order], axis=1)], axis=1)
+    names += [b"p%d_%s" % (k, rest[i][2]) for k, i in enumerate(order)]
+    return ends, quals, names
+
+
+def hg38_summary(path: str) -> dict:
+    """Primary records of a SAM file whose read names end in the true
+    _<contig>_<position> (single) or _<contig>_<pos 1>_<pos 2> (paired,
+    the 0x40 end takes pos 1), for all reads and for the ones placed
+    across 2^31 (names starting with s or q): primary, unmapped, MAPQ >=
+    10, and how many MAPQ >= 10 records lie on their contig within 30 bp
+    of their position."""
+    out = {k: {"primary": 0, "unmapped": 0, "mapq_ge_10": 0, "mapq10_at_truth": 0}
+           for k in ("all", "straddle")}
+    for ln in sam_records(path):
+        qname, flag, rname, pos, mapq, _ = ln.split(b"\t", 5)
+        flag = int(flag)
+        if flag & 0x900:
+            continue
+        f = qname.split(b"_")
+        if len(f) == 4:  # a pair's name: <id>_<contig>_<pos 1>_<pos 2>
+            true_rname, true_pos = f[1], int(f[2] if flag & 0x40 else f[3])
+        else:
+            true_rname, true_pos = f[1], int(f[2])
+        for k in ("all", "straddle") if qname[:1] in b"sq" else ("all",):
+            o = out[k]
+            o["primary"] += 1
+            if flag & 0x4:
+                o["unmapped"] += 1
+            elif int(mapq) >= 10:
+                o["mapq_ge_10"] += 1
+                o["mapq10_at_truth"] += (rname == true_rname
+                                         and abs(int(pos) - true_pos) <= 30)
+    for o in out.values():
+        o["at_truth_share"] = o["mapq10_at_truth"] / max(1, o["mapq_ge_10"])
+    out["primary"] = out["all"]["primary"]
+    out["shares"] = {k: out[k]["at_truth_share"] for k in ("all", "straddle")}
+    return out
+
+
+HG38_READS = 16_384            # single-end reads beside the HG38_STRADDLE straddling ones
+HG38_PAIRS = 2_048             # pairs beside the straddling ones
+HG38_RECORD_READS = 4_096      # the untimed recording run: its first RECORD_STEPS steps
+HG38_CHECK_READS = 512         # card-vs-CPU SAM: the straddling reads and the next 448
+HG38_FAST_READS = 512          # the fast-path run: the straddling reads and 448 of chr21
+HG38_CHECK_PAIRS = 256         # card-vs-CPU SAM: the straddling pairs and the next 192
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def bam_vs_sam(bam: str, sam: str) -> dict:
+    """Fails unless the .bai is there, the BAM's records are sorted, and
+    they are the SAM's records once sorted (the duplicate flag aside)."""
+    from snap_tpu_torch.io.bam import read_bam
+
+    if not os.path.exists(bam + ".bai"):
+        fail("hg38", "-so: no .bai beside the BAM")
+    _, refs, recs = read_bam(bam)
+    if refs != [n for n, _ in HG38_CONTIGS]:
+        fail("hg38", f"-so: the BAM's references are {refs}")
+    keys = [(r.ref_id if r.ref_id >= 0 else 1 << 30, r.pos0) for r in recs]
+    if keys != sorted(keys):
+        fail("hg38", "-so: the BAM records are not sorted")
+    fields = lambda qn, fl, rn, pos, mq, cig: (qn, int(fl) & ~0x400, rn, int(pos), int(mq), cig)
+    from_bam = sorted(fields(r.qname, r.flag, refs[r.ref_id] if r.ref_id >= 0 else "*",
+                             r.pos0 + 1, r.mapq, r.cigar or "*") for r in recs)
+    from_sam = sorted(fields(f[0], f[1], f[2].decode(), f[3], f[4], f[5].decode())
+                      for f in (ln.split(b"\t", 6) for ln in sam_records(sam)))
+    if from_bam != from_sam:
+        bad = next(i for i, (a, b) in enumerate(zip(from_bam, from_sam)) if a != b)
+        fail("hg38", f"-so: {len(from_bam)} BAM records, {len(from_sam)} SAM records; "
+                     f"first difference {from_bam[bad]} against {from_sam[bad]}")
+    return {"records": len(recs), "duplicates": sum(1 for r in recs if r.flag & 0x400),
+            "contigs_with_records": len({r.ref_id for r in recs if r.ref_id >= 0}),
+            "bam_bytes": os.path.getsize(bam), "bai_bytes": os.path.getsize(bam + ".bai")}
+
+
+def phase_hg38(seed: int, ctx: dict, sam: dict, paired: dict, workdir: str) -> tuple:
+    """The main paths at GRCh38 coordinates: the hg38 layout's FASTA
+    (chr21 the e2e genome) through `index`, loaded on the card, then
+    `single` (an untimed run of the first HG38_RECORD_READS reads whose
+    step and redo-path launches are replayed bit for bit, then the timed
+    run), `single` on the straddling reads and chr21's in one batch that
+    must keep the fast path, `single -so` on the recorded run's reads
+    (its sorted BAM and .bai held to that run's records), `paired` (as
+    `single`). Returns (the runs' launches and replays,
+    the inputs for the mesh phase, the card-vs-CPU checks still to run
+    on the CPU)."""
+    import torch
+
+    from snap_tpu_torch.align import paired_driver
+    from snap_tpu_torch.cli import _load_index_cached
+    from snap_tpu_torch.cli import main as cli_main
+    from snap_tpu_torch.io import output
+
+    t_phase = time.time()
+    res, runs, replays, checks = {}, {}, {}, []
+    windows = hg38_windows(seed, ctx["codes"])
+    fa = os.path.join(workdir, "hg38.fa")
+    t0 = time.time()
+    write_hg38_fasta(fa, windows)
+    res["fasta_s"], res["fasta_bytes"] = time.time() - t0, os.path.getsize(fa)
+    idx_dir = os.path.join(workdir, "hg38_idx")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if cli_main(["index", fa, idx_dir, "-s", "24"]) != 0:
+        fail("hg38", "the index command failed")
+    res["index_build_s"] = time.time() - t0
+    res["index_build_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["peak_rss_gb_after_build"] = peak_rss_gb()
+    os.remove(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    idx = _load_index_cached(idx_dir, "cuda")
+    torch.cuda.synchronize()
+    res["index_load_s"] = time.time() - t0
+    res["peak_rss_gb_after_load"] = peak_rss_gb()
+    g = idx.genome_meta
+    if g.num_bases != HG38_BP or [(c.name, c.length) for c in g.contigs] != list(HG38_CONTIGS):
+        fail("hg38", f"the index holds {g.num_bases} bases in {len(g.contigs)} contigs")
+    starts = hg38_starts()
+    for name, off, codes in windows:
+        s = starts[name] + off
+        if not np.array_equal(g.bases[s : s + codes.size], codes):
+            fail("hg38", f"the {name} window at {s} did not come back from the index")
+    res["index_device_bytes"] = sum(t.numel() * t.element_size() for t in idx.device)
+    res["hits"], res["max_probe"] = int(idx._host_arrays["hits"].shape[0]), idx.max_probe
+
+    # single: an untimed recording run, then the timed run of every read
+    rng = np.random.default_rng(seed + 10)
+    reads, quals, names = hg38_reads(rng, windows, HG38_READS, READ_LEN)
+    n = reads.shape[0]
+    fq = os.path.join(workdir, "hg38.fq")
+    write_fastq(fq, reads, quals, names)
+    fq_rec = os.path.join(workdir, "hg38_rec.fq")
+    k = HG38_RECORD_READS
+    write_fastq(fq_rec, reads[:k], quals[:k], names[:k])
+    step_calls = {name: [] for name in KERNEL_SOURCES}
+    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS}), \
+            recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
+        rec = run_single(["single", idx_dir, fq_rec, "-o", os.path.join(workdir, "hg38_rec.sam")],
+                         phase="hg38")
+    replays["single_step"] = replay_launches(step_calls, "hg38 steps", "hg38")
+    replays["single_redo"] = replay_launches(redo_calls, "hg38 redo paths", "hg38")
+    del step_calls, redo_calls
+    out = os.path.join(workdir, "hg38.sam")
+    run = run_single(["single", idx_dir, fq, "-o", out], phase="hg38")
+    check_run("hg38", "single", run, out, n, hg38_summary)
+    runs["single"] = {"launches": run["launches"], "reads_per_s": run["reads_per_s"],
+                      "chr21_sam_reads_per_s": sam["run"]["reads_per_s"]}
+    emit({"phase": "hg38", "ok": True, "run": "single", "reads": n, **res,
+          "recorded_run": {"reads": k, "wall_s": rec["wall_s"], "launches": rec["launches"]},
+          "replays": {r: replays[r] for r in ("single_step", "single_redo")},
+          "timed_run": run, "chr21_sam_reads_per_s": sam["run"]["reads_per_s"]})
+    argv_of = lambda f, o: ["single", idx_dir, f, "-o", o]
+    checks.append(card_check("hg38", "hg38_single", argv_of, workdir, reads, quals, names,
+                             HG38_CHECK_READS))
+
+    # the fast path past 2^31: the straddling reads in one batch with
+    # chr21's, which the DP tier holds (the other windows' repeat families
+    # overflow it: PERF.md §6), so every record of the run, the straddlers'
+    # among them, comes from the device step's winners (_finalize_fast)
+    pick = [i for i in range(n) if i < HG38_STRADDLE or b"_chr21_" in names[i]]
+    pick = pick[:HG38_FAST_READS]
+    fq_fast = os.path.join(workdir, "hg38_fast.fq")
+    write_fastq(fq_fast, reads[pick], quals[pick], [names[i] for i in pick])
+    fast_out = os.path.join(workdir, "hg38_fast.sam")
+    fast = run_single(["single", idx_dir, fq_fast, "-o", fast_out], phase="hg38")
+    check_run("hg38", "single_fast", fast, fast_out, len(pick), hg38_summary)
+    br = fast["branches"]
+    if br.get("dp_overflow", 0) or br.get("batches") != 1 or not br.get("planned", 0):
+        fail("hg38", f"single_fast: the straddling reads' batch left the fast path "
+                     f"(dp_overflow, or no native SAM plan): {dict(br)}")
+    runs["single_fast"] = {"launches": fast["launches"], "branches": dict(br)}
+    emit({"phase": "hg38", "ok": True, "run": "single_fast", "reads": len(pick),
+          "timed_run": fast})
+    o_cpu = os.path.join(workdir, "hg38_fast_cpu.sam")
+    checks.append({"phase": "hg38", "tag": "hg38_single_fast", "reads": len(pick),
+                   "cpu_argv": ["single", idx_dir, fq_fast, "-o", o_cpu], "cpu_sam": o_cpu,
+                   "card": sam_records(fast_out), "card_wall_s": fast["wall_s"]})
+
+    # -so on the recording run's reads: the sorted, duplicate-marked BAM
+    # with its .bai, held to that run's SAM
+    bam = os.path.join(workdir, "hg38.bam")
+    so = run_single(["single", idx_dir, fq_rec, "-o", bam, "-so"], phase="hg38",
+                    owners=[(output.OutputWriter, "close")])
+    so_res = bam_vs_sam(bam, os.path.join(workdir, "hg38_rec.sam"))
+    runs["single_so"] = {"launches": so["launches"], "reads_per_s": k / so["wall_s"]}
+    emit({"phase": "hg38", "ok": True, "run": "single_so", "reads": k, **so_res,
+          "wall_s": so["wall_s"], "reads_per_s": k / so["wall_s"],
+          "sort_and_write_s": so["host_seconds"].get("close", {}).get("s"),
+          "launches": so["launches"]})
+
+    # paired: an untimed recording run, then the timed run
+    ends, pquals, pnames = hg38_pairs(rng, windows, HG38_PAIRS, READ_LEN)
+    m = ends.shape[1]
+    fqs = tuple(os.path.join(workdir, f"hg38_{e + 1}.fq") for e in range(2))
+    for e in range(2):
+        write_fastq(fqs[e], ends[e], pquals[e], pnames)
+    cls = paired_driver.PairedEndAligner
+    batch_calls = {name: [] for name in KERNEL_SOURCES}
+    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(batch_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}), \
+            recording(redo_calls, inside={(cls, "_redo_overflow_pairs"): None,
+                                          (cls, "_fix_edge_indels"): None}):
+        prec = run_paired(["paired", idx_dir, *fqs, "-o", os.path.join(workdir, "hg38_prec.sam")],
+                          phase="hg38")
+    replays["paired_batch"] = replay_launches(batch_calls, "hg38 paired batches", "hg38")
+    replays["paired_redo"] = replay_launches(redo_calls, "hg38 paired redo paths", "hg38")
+    del batch_calls, redo_calls
+    pout = os.path.join(workdir, "hg38_paired.sam")
+    prun = run_paired(["paired", idx_dir, *fqs, "-o", pout], phase="hg38")
+    check_run("hg38", "paired", prun, pout, 2 * m, hg38_summary)
+    prun["pairs_per_s"] = m / prun["wall_s"]
+    runs["paired"] = {"launches": prun["launches"], "pairs_per_s": prun["pairs_per_s"],
+                      "chr21_paired_pairs_per_s": paired["pairs_per_s"]}
+    emit({"phase": "hg38", "ok": True, "run": "paired", "pairs": m,
+          "recorded_run": {"wall_s": prec["wall_s"], "launches": prec["launches"]},
+          "replays": {r: replays[r] for r in ("paired_batch", "paired_redo")},
+          "timed_run": prun, "chr21_paired_pairs_per_s": paired["pairs_per_s"]})
+    checks.append(paired_card_check(
+        "hg38", "hg38_paired", lambda f1, f2, o: ["paired", idx_dir, f1, f2, "-o", o],
+        workdir, (ends, pquals, pnames), HG38_CHECK_PAIRS))
+    res["phase_s"] = time.time() - t_phase
+    res["peak_rss_gb"] = peak_rss_gb()
+    res["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "hg38", "ok": True, "run": "summary", **res})
+    return ({"runs": runs, "replays": replays, **res},
+            {"idx_dir": idx_dir, "reads": (reads, quals, names),
+             "pairs": (ends, pquals, pnames)}, checks)
+
+
 # -------------------------------------------------------------- multi-device
 
 CARD = "cuda"                  # the mesh and apps phases' device (the cached index's)
-MESH_READS = 16_384            # `single -ishards 2` and the direct index = 2 step
+MESH_READS = 8_192             # `single -ishards 2` and the direct index = 2 step (hg38)
 MESH_RECORD_STEPS = 4          # mesh steps of the recording run whose launches are replayed
 MESH_CHECK_READS = 1024        # card-vs-CPU winners of the direct index = 2 step
 MESH_SAM_CHECK_READS = 512     # card-vs-CPU SAM of `single -ishards 2`
-MESH_PAIRS = 2_048             # `paired -ishards 2`
+MESH_PAIRS = 2_048             # `paired -ishards 2` (hg38)
 MESH_CHECK_PAIRS = 256         # card-vs-CPU SAM of it
 
 
-def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, list]:
-    """The multi-device path on one card. (1) `single -ishards 2` on the
-    first MESH_READS reads of the sam phase: one device makes it a 1 x 1
+def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
+    """The multi-device path on one card, on the hg38 phase's index and
+    inputs (`hg`: its index directory, reads and pairs). (1) `single
+    -ishards 2` on the first MESH_READS reads: one device makes it a 1 x 1
     mesh (snap_tpu's rule), so the resharded index, the monolithic mesh
     step (parallel.mesh.align_winners_sharded) and its dp_overflow redo
     (align_tier1_sharded) run; an untimed run keeps the launches of its
@@ -1833,8 +2274,9 @@ def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, lis
     index resharded into 2 tables, the K axis merged across them), one
     MESH_READS batch, every launch replayed; its winners on the first
     MESH_CHECK_READS reads equal the CPU mesh's bit for bit. (3) `paired
-    -ishards 2` on MESH_PAIRS pairs, its first batches' launches
-    replayed. Returns the runs' launches and replays, and the
+    -ishards 2` on the first MESH_PAIRS pairs, its first batches'
+    launches replayed. Runs (1) and (3) are held to the truth in the read
+    names (check_run with hg38_summary). Returns the runs' launches and replays, and the
     card-vs-CPU SAM checks of (1) and (3) still to run."""
     import torch
 
@@ -1844,8 +2286,8 @@ def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, lis
     from snap_tpu_torch.index.build import reshard_index
     from snap_tpu_torch.parallel import mesh
 
-    idx_dir = ctx["idx_dir"]
-    reads, quals, names = sam["reads"]
+    idx_dir = hg["idx_dir"]
+    reads, quals, names = hg["reads"]
     n = MESH_READS
     fq = os.path.join(workdir, "mesh.fq")
     write_fastq(fq, reads[:n], quals[:n], names[:n])
@@ -1865,7 +2307,7 @@ def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, lis
     run = run_single(argv_of(fq, out), phase="mesh")
     if run["mesh"] != {"data": 1, "index": 1} or run["steps"]["mesh"] != n // 1024:
         fail("mesh", f"-ishards 2 on one card ran mesh {run['mesh']}, steps {run['steps']}")
-    check_run("mesh", "single_ishards2", run, out, n, list(KERNEL_SOURCES))
+    check_run("mesh", "single_ishards2", run, out, n, hg38_summary)
     sam_run = sam["run"]
     runs["single_ishards2"] = {
         "launches": run["launches"], "reads_per_s": run["reads_per_s"],
@@ -1955,9 +2397,7 @@ def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, lis
     torch.cuda.empty_cache()
 
     # (3) paired -ishards 2
-    rng = np.random.default_rng(seed + 5)
-    ends, pquals, pos = simulate_pairs(rng, ctx["codes"], MESH_PAIRS, READ_LEN)
-    pnames = [b"p%d_%d_%d" % (i, a, b_) for i, (a, b_) in enumerate(zip(*pos.tolist()))]
+    ends, pquals, pnames = hg["pairs"]
 
     def write_pairs(tag: str, k: int) -> tuple[str, str]:
         fqs = tuple(os.path.join(workdir, f"{tag}_{e + 1}.fq") for e in range(2))
@@ -1984,28 +2424,19 @@ def phase_mesh(seed: int, ctx: dict, sam: dict, workdir: str) -> tuple[dict, lis
     finally:
         mesh.paired_candidates_sharded = intersect
     replays["paired_batch"] = replay_launches(batch_calls, "mesh paired batches", "mesh")
-    summ = paired_summary(out)
     if prun["mesh"] != {"data": 1, "index": 1} or n_sharded[0] != MESH_PAIRS // 512:
         fail("mesh", f"paired -ishards 2 ran mesh {prun['mesh']}, "
                      f"{n_sharded[0]} sharded intersections")
-    if summ["primary"] != 2 * MESH_PAIRS or summ["within_30bp_share"] < MIN_WITHIN_30BP:
-        fail("mesh", f"paired -ishards 2: {summ}")
-    missing = [k for k in KERNEL_SOURCES if prun["launches"].get(k, 0) == 0]
-    if missing:
-        fail("mesh", f"paired -ishards 2: no launch of {missing}: {prun['launches']}")
+    summ = check_run("mesh", "paired_ishards2", prun, out, 2 * MESH_PAIRS, hg38_summary)
     runs["paired_ishards2"] = {"launches": prun["launches"],
                                "pairs_per_s": MESH_PAIRS / prun["wall_s"]}
     emit({"phase": "mesh", "ok": True, "run": "paired_ishards2", "pairs": MESH_PAIRS,
           "timed_run": prun, "sam": summ, "pairs_per_s": MESH_PAIRS / prun["wall_s"],
           "replays": replays["paired_batch"]})
-    fq1 = write_pairs("mesh_pcheck", MESH_CHECK_PAIRS)
-    o = os.path.join(workdir, "mesh_pcheck_cuda.sam")
-    r = run_paired(["paired", idx_dir, *fq1, "-o", o, "-ishards", "2"], phase="mesh")
-    o_cpu = os.path.join(workdir, "mesh_pcheck_cpu.sam")
-    checks.append({"phase": "mesh", "tag": "mesh_paired", "reads": 2 * MESH_CHECK_PAIRS,
-                   "paired": True,
-                   "cpu_argv": ["paired", idx_dir, *fq1, "-o", o_cpu, "-ishards", "2"],
-                   "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]})
+    checks.append(paired_card_check(
+        "mesh", "mesh_paired",
+        lambda f1, f2, o: ["paired", idx_dir, f1, f2, "-o", o, "-ishards", "2"],
+        workdir, hg["pairs"], MESH_CHECK_PAIRS))
     empty = [k for k in KERNEL_SOURCES
              if not any(rp[k]["launches"] for rp in replays.values())]
     if empty:
@@ -2128,26 +2559,84 @@ def phase_apps(seed: int, ctx: dict, workdir: str) -> dict:
 
 
 
-def phase_card_vs_cpu(checks: list) -> list:
-    """The CPU's runs of the card checks (card_check), compared with the
-    card's records (card_vs_cpu). They come after every card phase: the
-    CPU runs load the index to host memory, once."""
-    out = []
-    for c in checks:
-        if c.get("paired"):
-            r = run_paired(c["cpu_argv"], device="cpu", phase=c["phase"])
-        else:
-            r = run_single(c["cpu_argv"], device="cpu", phase=c["phase"])
-        diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
-        out.append({"phase": c["phase"], "run": c["tag"], "reads": c["reads"],
-                    "records_differ": len(diffs), "diffs": diffs,
-                    "card_wall_s": c["card_wall_s"], "cpu_wall_s": r["wall_s"]})
-    emit({"phase": "card_vs_cpu", "ok": True, "checks": out})
-    return out
+def cpu_worker(todo, done) -> None:
+    """CpuChecks' worker process: on the upper half of the host's cores
+    (torch's threads as many), each queued (i, phase, argv, paired)
+    command through the port's CLI on the CPU; puts (i, error, wall
+    seconds) back. Stops at None, or after a run that failed."""
+    cores = sorted(os.sched_getaffinity(0))
+    mine = cores[len(cores) // 2:]
+    os.sched_setaffinity(0, mine)
+    import torch
+
+    torch.set_num_threads(len(mine))
+    while (job := todo.get()) is not None:
+        i, phase, argv, paired = job
+        try:
+            r = (run_paired if paired else run_single)(argv, device="cpu", phase=phase)
+        except BaseException as e:  # fail() exits; its message is on stderr
+            done.put((i, repr(e), None))
+            return
+        done.put((i, None, r["wall_s"]))
+
+
+class CpuChecks:
+    """The CPU side of the card-vs-CPU checks (card_check,
+    paired_card_check): each check's command runs again on the CPU in a
+    worker process (cpu_worker) while the card phases go on, and finish()
+    holds the CPU's records to the card's (card_vs_cpu). The port's index
+    cache keeps one index, so checks are submitted grouped by index."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.todo, self.done = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=cpu_worker, args=(self.todo, self.done), daemon=True)
+        self.proc.start()
+        self.checks = []
+
+    def submit(self, checks: list) -> None:
+        for c in checks:
+            self.todo.put((len(self.checks), c["phase"], c["cpu_argv"], bool(c.get("paired"))))
+            self.checks.append(c)
+
+    def finish(self) -> list:
+        """Waits for every CPU run, compares, and prints the card_vs_cpu
+        line; fails on a CPU run that failed or records that differ."""
+        import queue
+
+        self.todo.put(None)
+        wall = {}
+        while len(wall) < len(self.checks):
+            try:
+                i, err, s = self.done.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    fail("card_vs_cpu", f"the CPU worker exited {self.proc.exitcode}")
+                continue
+            if err:
+                c = self.checks[i]
+                fail(c["phase"], f"the CPU run of the {c['tag']} check: {err}")
+            wall[i] = s
+        self.proc.join(60)
+        out = []
+        for i, c in enumerate(self.checks):
+            diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
+            out.append({"phase": c["phase"], "run": c["tag"], "reads": c["reads"],
+                        "records_differ": len(diffs), "diffs": diffs,
+                        "card_wall_s": c["card_wall_s"], "cpu_wall_s": wall[i]})
+        emit({"phase": "card_vs_cpu", "ok": True, "checks": out})
+        return out
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(10)
 
 
 def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
-                 paired: dict, long: dict, options: dict, mesh: dict,
+                 paired: dict, long: dict, options: dict, hg38: dict, mesh: dict,
                  apps: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
     run (-b 1024) and in the timed paired run (launches_paired), and the
@@ -2162,9 +2651,10 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     and the sums over the first batch's launches at -rl 256, -rl 400
     and 1500 bp (`rl256`, `rl400`, `rl1500`: device time, per-call time,
     bound; the plain versions timed once, by their comparison call). The
-    mesh phase adds each of its runs' launches (launches_mesh) and the
-    launches it replayed (mesh_launches_replayed), the apps phase the
-    daemon's run's launches (launches_daemon)."""
+    hg38 and mesh phases add each of their runs' launches (launches_hg38,
+    launches_mesh) and the launches they replayed (hg38_launches_replayed,
+    mesh_launches_replayed), the apps phase the daemon's run's launches
+    (launches_daemon)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -2195,13 +2685,15 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
         k["long_launches_replayed"] = {t: r["replays"][name]["launches"]
                                        for t, r in long.items()}
         k["launches_options"] = {t: r["launches"][name] for t, r in options.items()}
-        k["launches_mesh"] = {t: r["launches"][name] for t, r in mesh["runs"].items()}
-        k["mesh_launches_replayed"] = {t: r[name]["launches"]
-                                       for t, r in mesh["replays"].items()}
+        for ph, res in (("hg38", hg38), ("mesh", mesh)):
+            k[f"launches_{ph}"] = {t: r["launches"][name] for t, r in res["runs"].items()}
+            k[f"{ph}_launches_replayed"] = {t: r[name]["launches"]
+                                           for t, r in res["replays"].items()}
         k["launches_daemon"] = apps["daemon"]["launches"][name]
         k["max_abs_err"] = max([k["max_abs_err"], *(
             r["replays"][name]["max_abs_err"] for r in long.values()), *(
-            r[name]["max_abs_err"] for r in mesh["replays"].values())])
+            r[name]["max_abs_err"] for res in (hg38, mesh)
+            for r in res["replays"].values())])
         for t, r in long.items():
             if name in r["first_batch"]:
                 k[t] = r["first_batch"][name]
@@ -2235,36 +2727,50 @@ def main() -> None:
 
     seconds = {}
     t0 = time.time()
-    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
-        step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd,
-                                              args.profile)
-        if not all(step_launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
-            fail("e2e", f"a kernel was never launched in the step: {step_launches}")
-        seconds["e2e"], t0 = time.time() - t0, time.time()
-        sam = phase_sam(args.seed, ctx, wd, args.profile)
-        seconds["sam"], t0 = time.time() - t0, time.time()
-        paired = phase_paired(args.seed, ctx, wd)
-        seconds["paired"], t0 = time.time() - t0, time.time()
-        long, long_checks = phase_long(args.seed, ctx, wd, base)
-        seconds["long"], t0 = time.time() - t0, time.time()
-        options, option_checks = phase_options(ctx, sam, wd)
-        seconds["options"], t0 = time.time() - t0, time.time()
-        phase_bam(ctx, sam, wd)
-        seconds["bam"], t0 = time.time() - t0, time.time()
-        thread_checks = phase_threads(ctx, sam, wd)
-        seconds["threads"], t0 = time.time() - t0, time.time()
-        mesh, mesh_checks = phase_mesh(args.seed, ctx, sam, wd)
-        seconds["mesh"], t0 = time.time() - t0, time.time()
-        apps = phase_apps(args.seed, ctx, wd)
-        seconds["apps"], t0 = time.time() - t0, time.time()
-        ksum = phase_kernels(calls, base)
-        seconds["kernels"], t0 = time.time() - t0, time.time()
-        phase_card_vs_cpu(long_checks + option_checks + thread_checks + mesh_checks)
-        seconds["card_vs_cpu"] = time.time() - t0
+    cpu = CpuChecks()
+    try:
+        with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_") as wd:
+            step_launches, calls, ctx = phase_e2e(args.seed, args.genome_len, wd,
+                                                  args.profile)
+            if not all(step_launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
+                fail("e2e", f"a kernel was never launched in the step: {step_launches}")
+            seconds["e2e"], t0 = time.time() - t0, time.time()
+            # each phase's card-vs-CPU checks go to the CPU worker as the
+            # phase ends: the e2e genome's index first, then the hg38 one
+            sam = phase_sam(args.seed, ctx, wd, args.profile)
+            cpu.submit(sam["checks"])
+            seconds["sam"], t0 = time.time() - t0, time.time()
+            paired = phase_paired(args.seed, ctx, wd)
+            cpu.submit(paired["checks"])
+            seconds["paired"], t0 = time.time() - t0, time.time()
+            long, checks = phase_long(args.seed, ctx, wd, base)
+            cpu.submit(checks)
+            seconds["long"], t0 = time.time() - t0, time.time()
+            options, checks = phase_options(ctx, sam, wd)
+            cpu.submit(checks)
+            seconds["options"], t0 = time.time() - t0, time.time()
+            phase_bam(ctx, sam, wd)
+            seconds["bam"], t0 = time.time() - t0, time.time()
+            cpu.submit(phase_threads(ctx, sam, wd))
+            seconds["threads"], t0 = time.time() - t0, time.time()
+            apps = phase_apps(args.seed, ctx, wd)
+            seconds["apps"], t0 = time.time() - t0, time.time()
+            hg38, hg, checks = phase_hg38(args.seed, ctx, sam, paired, wd)
+            cpu.submit(checks)
+            seconds["hg38"], t0 = time.time() - t0, time.time()
+            mesh, checks = phase_mesh(hg, sam, wd)
+            cpu.submit(checks)
+            seconds["mesh"], t0 = time.time() - t0, time.time()
+            ksum = phase_kernels(calls, base)
+            seconds["kernels"], t0 = time.time() - t0, time.time()
+            cpu.finish()
+            seconds["card_vs_cpu_wait"] = time.time() - t0
+    finally:
+        cpu.stop()
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})
     emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired,
-                      long, options, mesh, apps))
+                      long, options, hg38, mesh, apps))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -122,15 +122,26 @@ def pack_seeds_range(bases: np.ndarray, lo: int, hi: int, seed_len: int):
     return fwd, rc, valid
 
 
+def has_bases(bases: np.ndarray, lo: int, hi: int, seed_len: int) -> bool:
+    """Whether the seeds at [lo, hi) touch any ACGT base: a chunk of a
+    genome that is N or padding throughout (most of a layout whose
+    sequence lies in windows) yields no seed and is skipped unpacked."""
+    return bool((bases[lo : hi + seed_len - 1] < 4).any())
+
+
 def extract_canonical_seeds(
     genome: Genome, seed_len: int, chunk: int = 1 << 24
 ):
     """All (canonical_key, orientation, location) triples over the genome."""
     bases = np.asarray(genome.bases)
     n = genome.num_bases - seed_len + 1
-    keys_l, orient_l, loc_l = [], [], []
+    keys_l = [np.zeros(0, np.uint64)]
+    orient_l = [np.zeros(0, bool)]
+    loc_l = [np.zeros(0, np.uint32)]
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
+        if not has_bases(bases, lo, hi, seed_len):
+            continue
         pos = np.arange(lo, hi, dtype=np.int64)
         fwd, rc, valid = pack_seeds_range(bases, lo, hi, seed_len)
         canonical = np.minimum(fwd, rc)
@@ -322,6 +333,8 @@ def build_index_chunked(
     total = 0
     for lo in range(0, n_pos, chunk):
         hi = min(lo + chunk, n_pos)
+        if not has_bases(bases, lo, hi, seed_len):
+            continue
         pos = np.arange(lo, hi, dtype=np.int64)
         fwd, rc, valid = pack_seeds_range(bases, lo, hi, seed_len)
         canonical = np.minimum(fwd, rc)[valid]

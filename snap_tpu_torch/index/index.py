@@ -65,30 +65,44 @@ class DeviceIndex(NamedTuple):
     genome_bad16: torch.Tensor   # [n16] int32 (u32 bits)
 
 
+PACK_CHUNK = 1 << 24  # bases per packing pass (a multiple of 16)
+
+
+def _pack_chunked(bases: np.ndarray, out: np.ndarray, values, fill: int) -> np.ndarray:
+    """Writes the 2-bit `values(chunk)` of every base into `out`, 16 bases
+    a uint32 word (base i of a word at bits 2*i), PACK_CHUNK bases at a
+    time: four bases to a byte, four bytes to a little-endian word, a
+    chunk's last word filled with `fill`. No copy wider than a chunk. A
+    chunk with no ACGT base (N or padding throughout: most of a genome
+    laid out at GRCh38's coordinates with few sequenced windows) is
+    skipped: the caller fills `out` with `fill` words, and `values` gives
+    every other base `fill`."""
+    for lo in range(0, bases.shape[0], PACK_CHUNK):
+        c = bases[lo : lo + PACK_CHUNK]
+        if not (c < 4).any():
+            continue
+        v = np.full(-(-c.shape[0] // 16) * 16, fill, dtype=np.uint8)
+        v[: c.shape[0]] = values(c)
+        q = v.reshape(-1, 4)
+        b = q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)
+        out[lo // 16 : lo // 16 + b.shape[0] // 4] = b.view("<u4")
+    return out
+
+
 def pack_genome_words(bases: np.ndarray) -> np.ndarray:
     """Host-side 2-bit packing of a byte-code genome (16 bases/word),
     padded with 8+ zero words to a multiple of 8 words."""
     g = np.asarray(bases)
-    G = g.shape[0]
-    n16 = (G + 15) // 16
+    n16 = (g.shape[0] + 15) // 16
     packed = np.zeros(n16 + 8 + (-(n16 + 8)) % 8, dtype=np.uint32)
-    codes = np.where(g < 4, g, 0).astype(np.uint32)
-    for i in range(16):
-        lane = codes[i::16]
-        packed[: len(lane)] |= lane << np.uint32(2 * i)
-    return packed
+    return _pack_chunked(g, packed, lambda c: c * (c < 4), 0)
 
 
 def pack_bad16(bases: np.ndarray, n_words: int) -> np.ndarray:
     """Invalid-base mask at even bit positions, 16 bases/word, padded to
     n_words with all-bad words (same geometry as the packed codes)."""
-    g = np.asarray(bases)
-    ext = np.ones(n_words * 16, dtype=np.uint32)
-    ext[: g.shape[0]] = g >= 4
-    bad16 = np.zeros(n_words, dtype=np.uint32)
-    for i in range(16):
-        bad16 |= ext[i::16] << np.uint32(2 * i)
-    return bad16
+    bad16 = np.full(n_words, 0x55555555, dtype=np.uint32)
+    return _pack_chunked(np.asarray(bases), bad16, lambda c: c >= 4, 1)
 
 
 def make_device_index(
@@ -107,12 +121,12 @@ def make_device_index(
     hits = np.asarray(arrays["hits"])
     pad = 8 + (-(hits.shape[0] + 8)) % 8
     hits_p = np.concatenate([hits, np.zeros(pad, hits.dtype)])
-    gpad = (-genome_bases.shape[0]) % 8
-    if gpad:
-        genome_bases = np.concatenate(
-            [genome_bases, np.full(gpad, 5, np.uint8)]
-        )
-    bad16 = pack_bad16(genome_bases, packed.shape[0])
+    # one copy, PAD-padded (a loaded genome is a read-only memory map)
+    G = genome_bases.shape[0]
+    genome_p = np.empty(G + (-G) % 8, dtype=np.uint8)
+    genome_p[:G] = genome_bases
+    genome_p[G:] = 5
+    bad16 = pack_bad16(genome_p, packed.shape[0])
 
     def t32(a):
         return torch.from_numpy(
@@ -122,8 +136,7 @@ def make_device_index(
     return DeviceIndex(
         table=t32(np.asarray(arrays["table"])),
         hits=t32(hits_p),
-        # a copy: a loaded genome is a read-only memory map
-        genome=torch.from_numpy(np.array(genome_bases, dtype=np.uint8)).to(dev),
+        genome=torch.from_numpy(genome_p).to(dev),
         genome_packed=t32(packed),
         genome_bad16=t32(bad16),
     )
@@ -294,10 +307,16 @@ class GenomeIndex:
         build.reshard_index) and put each shard on the devices of its
         index column, the genome on every device. Sets .device_sharded
         and .mesh; max_probe widens to cover the shards' spans, so build
-        the aligner's AlignParams after this call."""
+        the aligner's AlignParams after this call. A second call for the
+        same devices and shard count keeps the placement it made (a
+        cached index runs command after command on one mesh)."""
         from ..parallel.mesh import sharded_device_index
         from .build import reshard_index
 
+        key = (mesh.devices, mesh.ranks, n_index)
+        if getattr(self, "_mesh_key", None) == key:
+            self.mesh = mesh
+            return self
         arrays = reshard_index(
             {
                 "seed_len": self.seed_len,
@@ -311,6 +330,7 @@ class GenomeIndex:
             arrays, np.asarray(self.genome_meta.bases), mesh
         )
         self.mesh = mesh
+        self._mesh_key = key
         return self
 
     def save(self, directory: str) -> None:

@@ -37,6 +37,24 @@ def test_load_fasta(tmp_path):
                 TG.load_fasta(str(tmp_path / "h.fa"), **kw))
 
 
+@pytest.mark.parametrize("text", [
+    b"ACGT\nGG\n>c1\nAC\n\n\nGT\n>c2\n>c3\nTTTT",      # lines before any header
+    b">c1\nAC GT\n\tGG\r\nCC\x0b\n>c2 x\nA\x0cA\n",      # whitespace inside records
+    b">c1\nACGT\n  >c2 y\nGGCC\n>c3\nA>C\n",              # a header after spaces, '>' inside
+    b">c1\r\nACGT\r\nGG\r\n>c2\r\nTT\r\n",             # CRLF line ends
+    b"\n\n>c1\n\nACGT\n\n>c2\n",                         # blank lines, an empty record
+])
+def test_load_fasta_line_rules(tmp_path, text):
+    """The port parses a record's sequence lines at once where they hold
+    no whitespace but their newlines, and line by line elsewhere: both
+    give snap_tpu's genome (each line stripped, blank lines skipped, a
+    stripped line starting with '>' a header)."""
+    fa = tmp_path / "g.fa"
+    fa.write_bytes(text)
+    same_genome(JG.load_fasta(str(fa), chromosome_padding=3),
+                TG.load_fasta(str(fa), chromosome_padding=3))
+
+
 @pytest.mark.parametrize("kw", [
     {}, {"auto_alt": False}, {"alt_names": {"chr1"}}, {"non_alt_names": {"chr1_alt"}},
 ])

@@ -225,7 +225,7 @@ def record(workdir: str, seed: int, glen: int) -> dict:
         cs.fail("record", "the index command failed")
     out = {"step": record_step(rng, codes, genome, idx, workdir)}
     rng = np.random.default_rng(seed + 3)  # chip_smoke's phase_long
-    for read_len, rl, n in (*cs.LONG_RUNS, (cs.XL_LEN, cs.XL_LEN, cs.XL_READS)):
+    for read_len, rl, n, _ in (*cs.LONG_RUNS, (cs.XL_LEN, cs.XL_LEN, cs.XL_READS, None)):
         reads, quals, _, _ = cs.simulate_reads(rng, codes, contig_start, n, read_len)
         tag = f"rl{rl}"
         xl = read_len == cs.XL_LEN
