@@ -135,16 +135,28 @@ Phases, each printing one JSON line:
            run (reads/s); align_winners_sharded on a data = 1 x index =
            2 mesh of cuda:0 twice on one 8192-read batch, every launch
            replayed, its winners on the first 1024 reads equal to the
-           CPU mesh's bit for bit; `paired -ishards 2` on 2048 pairs,
-           its first batches' launches replayed. Fails unless every
-           kernel launched on the mesh path and the runs meet the hg38
-           phase's accuracy.
+           CPU mesh's bit for bit; the same step and batch with the
+           index row across 2 processes (children of this script joined
+           over gloo, each placing its own shard and the genome on
+           cuda:0; nccl refuses two ranks on one card), each child's
+           launches replayed, both ranks' winners equal to the
+           one-process step's bit for bit; `paired -ishards 2` on 2048
+           pairs, its first batches' launches replayed; BASELINE config
+           5 in one run, `paired -ishards 2 -so` with cuda:0 listed 8
+           times (data 4 x index 2) on those pairs plus 8% planted
+           duplicates: SO:coordinate, the .bai, the mapped records
+           sorted, every mapped record of a planted pair flagged 0x400,
+           the sort-and-write seconds, its first batches' launches
+           replayed. Fails unless every kernel launched on the mesh path
+           and the runs meet the hg38 phase's accuracy.
   card_vs_cpu  the first reads of the sam run (1024), the paired run
            (512 pairs), each long and options run (128; 16 at 1500 bp;
            512), the -t 4 run (1024), the hg38 phase's `single` (512:
            the straddling reads first), `single_fast` (512) and `paired`
            (256 pairs, the straddling ones first) and the mesh phase's
-           `single -ishards 2` (512) and `paired -ishards 2` (256 pairs),
+           `single -ishards 2` (512), `paired -ishards 2` (256 pairs) and
+           Config 5 (256 pairs and 20 planted, a 4 x 2 mesh of the CPU:
+           the BAMs' records),
            run on the card in their phase, again on the CPU: at most 2
            records differing, in MAPQ +-1 only. The CPU runs go to a
            worker process on the upper half of the host's cores as each
@@ -1091,8 +1103,25 @@ def sam_summary(path: str) -> dict:
 
 
 def sam_records(path: str) -> list[bytes]:
+    """The records of a SAM file, or of a BAM file (bam_lines)."""
+    if path.endswith(".bam"):
+        return bam_lines(path)
     with open(path, "rb") as f:
         return [ln for ln in f.read().split(b"\n") if ln and not ln.startswith(b"@")]
+
+
+def bam_lines(path: str) -> list[bytes]:
+    """A BAM file's records in file order as SAM-like lines: QNAME FLAG
+    RNAME POS MAPQ CIGAR RNEXT PNEXT TLEN SEQ QUAL, then the tags in hex."""
+    from snap_tpu_torch.io.bam import read_bam
+
+    _, refs, recs = read_bam(path)
+    ref = lambda i: refs[i].encode() if i >= 0 else b"*"  # noqa: E731
+    return [b"\t".join((
+        r.qname, b"%d" % r.flag, ref(r.ref_id), b"%d" % (r.pos0 + 1), b"%d" % r.mapq,
+        (r.cigar or "*").encode(), ref(r.next_ref_id), b"%d" % (r.next_pos0 + 1),
+        b"%d" % r.tlen, r.seq or b"*", r.qual or b"*", r.tags.hex().encode(),
+    )) for r in recs]
 
 
 def card_vs_cpu(phase: str, card: list[bytes], cpu: list[bytes]) -> list[dict]:
@@ -1147,8 +1176,9 @@ def timers(acc: dict, owners: list):
 
 
 def run_cli(phase: str, argv: list[str], cls, entry: str, owners: list,
-            device: str) -> tuple[dict, object, dict]:
-    """One command through the port's CLI entry point, timed, with the
+            device: str, devices=None) -> tuple[dict, object, dict]:
+    """One command through the port's CLI entry point (on `devices`, a
+    mesh's positions, when given), timed, with the
     kernels' launch counts and the native library's use set to 0 just
     before it and read just after, and the host's seconds in `owners`
     (timers). Returns (the common fields of the run, the `cls` aligner
@@ -1169,7 +1199,7 @@ def run_cli(phase: str, argv: list[str], cls, entry: str, owners: list,
     try:
         with timers(acc, owners):
             t0 = time.perf_counter()
-            rc, launches = counted(lambda: cli_main(argv, device=device))
+            rc, launches = counted(lambda: cli_main(argv, device=device, devices=devices))
             wall = time.perf_counter() - t0
     finally:
         setattr(cls, entry, run_entry)
@@ -1446,21 +1476,23 @@ def paired_summary(path: str) -> dict:
     return out
 
 
-def run_paired(argv: list[str], device: str = "cuda", phase: str = "paired") -> dict:
-    """One `paired` command through run_cli, with the host's seconds in
-    the device intersection, the batch's scoring and the redo paths, the
-    pair counters of AlignerStats, and the card's peak memory in the
-    run."""
+def run_paired(argv: list[str], device: str = "cuda", phase: str = "paired",
+               devices=None, owners: list = ()) -> dict:
+    """One `paired` command through run_cli (on `devices` when given),
+    with the host's seconds in the device intersection, the batch's
+    scoring, the redo paths and `owners`, the pair counters of
+    AlignerStats, and the card's peak memory in the run."""
     import torch
 
     from snap_tpu_torch.align import paired_driver, pipeline
 
     cls = paired_driver.PairedEndAligner
-    owners = [(cls, n) for n in PAIRED_METHODS] + [(pipeline, n) for n in PAIRED_PIPELINE]
+    owners = ([(cls, n) for n in PAIRED_METHODS] + [(pipeline, n) for n in PAIRED_PIPELINE]
+              + list(owners))
     card = device != "cpu"
     if card:
         torch.cuda.reset_peak_memory_stats()
-    run, aligner, acc = run_cli(phase, argv, cls, "align_files", owners, device)
+    run, aligner, acc = run_cli(phase, argv, cls, "align_files", owners, device, devices)
     wall = run["wall_s"]
     sec = lambda *names: sum(acc.get(n, [0.0])[0] for n in names)
     parts = {"intersect": sec("_device_intersect"), "scoring": sec(*PAIRED_PIPELINE),
@@ -1613,32 +1645,46 @@ def check_run(phase: str, what: str, run: dict, out: str, n: int,
 
 
 def card_check(phase: str, tag: str, argv_of, workdir: str, reads, quals, names,
-               n: int) -> dict:
+               n: int, submit=None) -> dict:
     """The first n reads through argv_of(fastq, out) on the card; the
-    same on the CPU runs in CpuChecks."""
+    same on the CPU runs in CpuChecks (handed to `submit`, when given,
+    before the card's run, so that the CPU's runs while the card's)."""
     fq1 = os.path.join(workdir, f"{tag}_check.fq")
     write_fastq(fq1, reads[:n], quals[:n], names[:n])
     o = os.path.join(workdir, f"{tag}_check_cuda.sam")
-    r = run_single(argv_of(fq1, o), phase=phase)
     o_cpu = os.path.join(workdir, f"{tag}_check_cpu.sam")
-    return {"phase": phase, "tag": tag, "reads": n, "cpu_argv": argv_of(fq1, o_cpu),
-            "cpu_sam": o_cpu, "card": sam_records(o), "card_wall_s": r["wall_s"]}
+    check = {"phase": phase, "tag": tag, "reads": n, "cpu_argv": argv_of(fq1, o_cpu),
+             "cpu_sam": o_cpu}
+    if submit:
+        submit([check])
+    r = run_single(argv_of(fq1, o), phase=phase)
+    check.update(card=sam_records(o), card_wall_s=r["wall_s"])
+    return check
 
 
-def paired_card_check(phase: str, tag: str, argv_of, workdir: str, pairs, n: int) -> dict:
+def paired_card_check(phase: str, tag: str, argv_of, workdir: str, pairs, n: int,
+                      positions: int = 0, ext: str = ".sam", submit=None) -> dict:
     """The first n pairs (`pairs`: ends [2, P, L], quals, names) through
-    argv_of(fastq 1, fastq 2, out) on the card; the same on the CPU runs
-    in CpuChecks."""
+    argv_of(fastq 1, fastq 2, out) on the card (on the card listed
+    `positions` times, when given: a mesh); the same on the CPU (the CPU
+    as many times) runs in CpuChecks (handed to `submit`, when given,
+    before the card's run). `ext` is the output's (.sam or .bam)."""
+    import torch
+
     ends, quals, names = pairs
     fqs = [os.path.join(workdir, f"{tag}_check_{e + 1}.fq") for e in range(2)]
     for e in range(2):
         write_fastq(fqs[e], ends[e, :n], quals[e, :n], names[:n])
-    o = os.path.join(workdir, f"{tag}_check_cuda.sam")
-    r = run_paired(argv_of(*fqs, o), phase=phase)
-    o_cpu = os.path.join(workdir, f"{tag}_check_cpu.sam")
-    return {"phase": phase, "tag": tag, "reads": 2 * n, "paired": True,
-            "cpu_argv": argv_of(*fqs, o_cpu), "cpu_sam": o_cpu, "card": sam_records(o),
-            "card_wall_s": r["wall_s"]}
+    o = os.path.join(workdir, f"{tag}_check_cuda{ext}")
+    o_cpu = os.path.join(workdir, f"{tag}_check_cpu{ext}")
+    check = {"phase": phase, "tag": tag, "reads": 2 * n, "paired": True,
+             "positions": positions, "cpu_argv": argv_of(*fqs, o_cpu), "cpu_sam": o_cpu}
+    if submit:
+        submit([check])
+    devices = [torch.device(CARD)] * positions if positions else None
+    r = run_paired(argv_of(*fqs, o), phase=phase, devices=devices)
+    check.update(card=sam_records(o), card_wall_s=r["wall_s"])
+    return check
 
 
 def launch_spread(calls: dict) -> dict:
@@ -2258,10 +2304,192 @@ MESH_RECORD_STEPS = 4          # mesh steps of the recording run whose launches 
 MESH_CHECK_READS = 1024        # card-vs-CPU winners of the direct index = 2 step
 MESH_SAM_CHECK_READS = 512     # card-vs-CPU SAM of `single -ishards 2`
 MESH_PAIRS = 2_048             # `paired -ishards 2` (hg38)
-MESH_CHECK_PAIRS = 256         # card-vs-CPU SAM of it
+MESH_CHECK_PAIRS = 256         # card-vs-CPU SAM of it, and of Config 5's BAM
+MESH_PROCS = 2                 # processes of the index = 2 step across processes
+MESH_PROCS_TIMEOUT = 300       # seconds the processes may take together
+CONFIG5_POSITIONS = 8          # cuda:0 listed 8 times: -ishards 2 makes it data 4 x index 2
+CONFIG5_DUP_FRAC = 0.08        # planted duplicate pairs (tools/demo_config5.py's --dup-frac)
 
 
-def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
+def plant_duplicate_pairs(pairs, n: int, seed: int = 5):
+    """The first n pairs (`pairs`: ends [2, P, L], quals, names) and
+    int(CONFIG5_DUP_FRAC * n) of them again under new names (dup<k>_ and
+    the source's truth fields: the same bases and qualities), as
+    tools/demo_config5.py plants PCR duplicates. Returns the pairs tuple
+    and the source pair of each duplicate."""
+    ends, quals, names = pairs
+    src = np.random.default_rng(seed).choice(n, size=int(n * CONFIG5_DUP_FRAC), replace=False)
+    take = np.concatenate([np.arange(n), src])
+    new = [b"dup%d%s" % (k, names[i][names[i].index(b"_"):]) for k, i in enumerate(src)]
+    return (ends[:, take], quals[:, take], list(names[:n]) + new), src
+
+
+def config5_bam_checks(path: str, src) -> dict:
+    """Config 5's BAM: SO:coordinate, its .bai, the mapped records in
+    coordinate order, and every mapped record of a planted duplicate
+    (named dup<k>_) flagged 0x400 unless its source pair is itself a
+    duplicate of another pair by chance (both ends' contig, position and
+    strand alike). Fails otherwise; returns the counts."""
+    from snap_tpu_torch.io.bam import read_bam
+
+    if not os.path.exists(path + ".bai"):
+        fail("mesh", "config5: no .bai beside the BAM")
+    header, _, recs = read_bam(path)
+    if "SO:coordinate" not in header:
+        fail("mesh", "config5: the BAM's header has no SO:coordinate")
+    placed = [(r.ref_id, r.pos0) for r in recs if not r.flag & 0x4]
+    if placed != sorted(placed):
+        fail("mesh", "config5: the mapped records are not in coordinate order")
+    ends = {}
+    for r in recs:
+        if not r.flag & 0x900:
+            ends.setdefault(r.qname, []).append(
+                (r.flag & 0x40, r.ref_id, r.pos0, bool(r.flag & 0x10)))
+    by_place = {}
+    for name, v in ends.items():
+        if not name.startswith(b"dup"):
+            by_place.setdefault(tuple(sorted(v)), []).append(name)
+    planted = [r for r in recs if r.qname.startswith(b"dup") and not r.flag & 0x900]
+    chance = {r.qname for r in planted
+              if len(by_place.get(tuple(sorted(ends[r.qname])), ())) > 1}
+    unflagged = [r.qname.decode() for r in planted if not r.flag & 0x4
+                 and not r.flag & 0x400 and r.qname not in chance]
+    if unflagged:
+        fail("mesh", f"config5: {len(unflagged)} mapped records of planted duplicates "
+                     f"not flagged 0x400, first {unflagged[:5]}")
+    return {"records": len(recs), "planted_pairs": len(src),
+            "planted_records": len(planted),
+            "planted_flagged": sum(1 for r in planted if r.flag & 0x400),
+            "planted_unmapped": sum(1 for r in planted if r.flag & 0x4),
+            "planted_of_chance_duplicates": len(chance),
+            "duplicates": sum(1 for r in recs if r.flag & 0x400),
+            "bam_bytes": os.path.getsize(path), "bai_bytes": os.path.getsize(path + ".bai")}
+
+
+def mesh_child(rank: int, port: int, d: str) -> None:
+    """One process of run (4): joins a gloo group of MESH_PROCS, places
+    the index = 2 mesh's position it owns (shard `rank` and the genome,
+    on the card), runs align_winners_sharded on the job's batch with its
+    kernel launches counted and recorded, replays them against the plain
+    versions, and writes its winners and a JSON report into `d`."""
+    import torch
+    import torch.distributed as dist
+
+    from snap_tpu_torch.align.pipeline import AlignParams
+    from snap_tpu_torch.parallel import mesh
+
+    with open(os.path.join(d, "job.json")) as f:
+        job = json.load(f)
+    # a share of the lower half of the host's cores each (CpuChecks' worker
+    # holds the upper half): torch's threads spinning on shared cores slow
+    # a host step by orders of magnitude
+    cores = sorted(os.sched_getaffinity(0))
+    lower = cores[:max(1, len(cores) // 2)]
+    per = max(1, len(lower) // MESH_PROCS)
+    os.sched_setaffinity(0, lower[rank * per:(rank + 1) * per] or lower)
+    torch.set_num_threads(per)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=MESH_PROCS)
+    dev = torch.device(job["device"])
+    m = mesh.Mesh([[dev] * MESH_PROCS], ranks=[list(range(MESH_PROCS))])
+    t0 = time.time()
+    arrays = {k: np.load(os.path.join(d, f"{k}.npy"), mmap_mode="r") for k in ("table", "hits")}
+    sh = mesh.sharded_device_index(arrays, np.load(job["genome"], mmap_mode="r"), m)
+    place_s = time.time() - t0
+    tb, tq, tl = (torch.from_numpy(np.load(os.path.join(d, f"{k}.npy"))).to(dev)
+                  for k in ("bases", "quals", "lens"))
+    params = AlignParams(**job["params"])
+
+    def step():
+        return mesh.align_winners_sharded(sh, tb, tq, tl, job["fas"], params, m)[0]
+
+    calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(calls):
+        packed, launches = counted(step)
+    acc = {}
+    with timers(acc, [(mesh, "_row_columns")]):  # the gather over the row's ranks
+        t0 = time.perf_counter()
+        step().cpu()
+        wall = time.perf_counter() - t0
+    replays = replay_launches(calls, f"rank {rank}'s index = 2 step", "mesh")
+    np.save(os.path.join(d, f"winners{rank}.npy"), packed.cpu().numpy())
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "replays": replays, "place_s": place_s,
+                   "step_wall_s": wall, "gather_s": acc["_row_columns"][0],
+                   "columns": list(m.local_cols[0]),
+                   "shards_placed": sorted(j for _, j in sh.shards)}, f)
+    dist.destroy_process_group()
+
+
+def mesh_procs(workdir: str, arrays: dict, genome_path: str, b, q, lens, fas: int,
+               params, want) -> dict:
+    """Run (4): align_winners_sharded on a data 1 x index 2 mesh whose
+    row spans MESH_PROCS processes (ranks ((0, 1))), each a child of this
+    script on the card, joined over gloo (nccl refuses two ranks on one
+    card), on run (2)'s resharded index and batch. Their output goes to
+    files, never to this script's stdout. Fails unless each exits 0
+    within MESH_PROCS_TIMEOUT and returns `want` (run (2)'s one-process
+    winners) bit for bit; returns the children's reports."""
+    import socket
+
+    d = os.path.join(workdir, "mesh_procs")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.time()
+    for k, a in (("table", arrays["table"]), ("hits", arrays["hits"]),
+                 ("bases", b), ("quals", q), ("lens", lens)):
+        np.save(os.path.join(d, f"{k}.npy"), a)
+    with open(os.path.join(d, "job.json"), "w") as f:
+        json.dump({"genome": genome_path, "fas": int(fas), "device": CARD,
+                   "params": {"seed_len": params.seed_len, "max_probe": params.max_probe}}, f)
+    write_s = time.time() - t0
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        env.pop(k, None)
+    logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in range(MESH_PROCS)]
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-child",
+         str(r), str(port), d], env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL) for r in range(MESH_PROCS)]
+    try:
+        rcs = [p.wait(timeout=max(1.0, MESH_PROCS_TIMEOUT - (time.time() - t0)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    procs_s = time.time() - t0
+
+    def tail(r: int) -> str:
+        with open(os.path.join(d, f"log{r}.txt")) as f:
+            return f.read()[-1500:]
+
+    if rcs is None or any(rcs):
+        fail("mesh", f"index = 2 across processes: exit codes {rcs}; "
+                     + " | ".join(f"rank {r}: {tail(r)}" for r in range(MESH_PROCS)))
+    reports = []
+    for r in range(MESH_PROCS):
+        got = np.load(os.path.join(d, f"winners{r}.npy"))
+        rows = np.flatnonzero((got != want).any(axis=1)) if got.shape == want.shape else None
+        if rows is None or rows.size:
+            fail("mesh", f"index = 2 across processes: rank {r}'s winners differ from the "
+                         f"one-process step's ({got.shape} against {want.shape}), rows "
+                         f"{None if rows is None else rows[:5].tolist()}")
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return {"write_s": write_s, "procs_s": procs_s, "ranks": reports}
+
+
+def phase_mesh(hg: dict, sam: dict, workdir: str, submit) -> dict:
     """The multi-device path on one card, on the hg38 phase's index and
     inputs (`hg`: its index directory, reads and pairs). (1) `single
     -ishards 2` on the first MESH_READS reads: one device makes it a 1 x 1
@@ -2273,11 +2501,20 @@ def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
     called directly on a data = 1 x index = 2 mesh of cuda:0 twice (the
     index resharded into 2 tables, the K axis merged across them), one
     MESH_READS batch, every launch replayed; its winners on the first
-    MESH_CHECK_READS reads equal the CPU mesh's bit for bit. (3) `paired
-    -ishards 2` on the first MESH_PAIRS pairs, its first batches'
-    launches replayed. Runs (1) and (3) are held to the truth in the read
-    names (check_run with hg38_summary). Returns the runs' launches and replays, and the
-    card-vs-CPU SAM checks of (1) and (3) still to run."""
+    MESH_CHECK_READS reads equal the CPU mesh's bit for bit. (4) The same
+    step and batch with the index row across MESH_PROCS processes
+    (mesh_procs), winners equal to (2)'s bit for bit, each child's
+    launches replayed. (3) `paired -ishards 2` on the first MESH_PAIRS
+    pairs, its first batches' launches replayed. (5) Config 5: `paired
+    -ishards 2 -so` with cuda:0 listed CONFIG5_POSITIONS times (data 4 x
+    index 2) on those pairs plus planted duplicates
+    (plant_duplicate_pairs), the BAM checked (config5_bam_checks), the
+    sort-and-write seconds, its first batches' launches replayed. Runs
+    (1), (3) and (5) are held to the truth in the read names (check_run
+    with hg38_summary). The card-vs-CPU checks of (1), (3) and (5) go to
+    `submit` (CpuChecks.submit) before their card runs, Config 5's before
+    its timed run, so that the CPU runs them beside the card. Returns
+    the runs' launches and replays."""
     import torch
 
     from snap_tpu_torch.align import paired_driver
@@ -2292,7 +2529,7 @@ def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
     fq = os.path.join(workdir, "mesh.fq")
     write_fastq(fq, reads[:n], quals[:n], names[:n])
     cached = _load_index_cached(idx_dir, "cuda")
-    runs, replays, checks = {}, {}, []
+    runs, replays = {}, {}
 
     # (1) single -ishards 2: a 1 x 1 mesh on one card
     argv_of = lambda f, o: ["single", idx_dir, f, "-o", o, "-ishards", "2"]
@@ -2321,8 +2558,8 @@ def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
           "timed_run": run, "recorded_run": {"wall_s": rec["wall_s"],
                                              "launches": rec["launches"]},
           "replays": {k: replays[k] for k in ("single_step", "single_redo")}})
-    checks.append(card_check("mesh", "mesh_single", argv_of, workdir, reads, quals, names,
-                             MESH_SAM_CHECK_READS))
+    card_check("mesh", "mesh_single", argv_of, workdir, reads, quals, names,
+               MESH_SAM_CHECK_READS, submit=submit)
 
     # (2) align_winners_sharded on data = 1 x index = 2, cuda:0 twice
     t0 = time.time()
@@ -2393,8 +2630,28 @@ def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
           "found": int(w.found.sum()), "dp_overflow": bool(w.dp_overflow),
           "card_vs_cpu": {"reads": c, "rows_differ": 0, "cpu_s": cpu_s},
           "replays": replays["index2_step"]})
-    del step, sh, sh_cpu, arrays, tb, tq, tl, packed
+    want = packed.cpu().numpy()
+    del step, sh, sh_cpu, tb, tq, tl, packed
     torch.cuda.empty_cache()
+
+    # (4) the same step with the index row across MESH_PROCS processes
+    res = mesh_procs(workdir, arrays, os.path.join(idx_dir, "genome_bases.npy"), b, q,
+                     lens, fas, params, want)
+    del arrays
+    launches = {k: sum(r["launches"][k] for r in res["ranks"]) for k in KERNEL_SOURCES}
+    missing = [k for k in KERNEL_SOURCES
+               if any(r["launches"].get(k, 0) == 0 for r in res["ranks"])]
+    if missing:
+        fail("mesh", f"index = 2 across processes: a rank launched no {missing}: "
+                     f"{[r['launches'] for r in res['ranks']]}")
+    for r, rep in enumerate(res["ranks"]):
+        replays[f"index2_procs_rank{r}"] = rep["replays"]
+    runs["index2_procs"] = {"launches": launches,
+                            "reads_per_s": n / max(r["step_wall_s"] for r in res["ranks"]),
+                            "one_process_reads_per_s": runs["index2_step"]["reads_per_s"]}
+    emit({"phase": "mesh", "ok": True, "run": "index2_procs", "reads": n,
+          "processes": MESH_PROCS, "backend": "gloo", "ranks": [list(range(MESH_PROCS))],
+          "winners_equal_one_process": True, **res})
 
     # (3) paired -ishards 2
     ends, pquals, pnames = hg["pairs"]
@@ -2433,15 +2690,56 @@ def phase_mesh(hg: dict, sam: dict, workdir: str) -> tuple[dict, list]:
     emit({"phase": "mesh", "ok": True, "run": "paired_ishards2", "pairs": MESH_PAIRS,
           "timed_run": prun, "sam": summ, "pairs_per_s": MESH_PAIRS / prun["wall_s"],
           "replays": replays["paired_batch"]})
-    checks.append(paired_card_check(
+    paired_card_check(
         "mesh", "mesh_paired",
         lambda f1, f2, o: ["paired", idx_dir, f1, f2, "-o", o, "-ishards", "2"],
-        workdir, hg["pairs"], MESH_CHECK_PAIRS))
+        workdir, hg["pairs"], MESH_CHECK_PAIRS, submit=submit)
+
+    # (5) Config 5: paired -ishards 2 -so on a data 4 x index 2 mesh of cuda:0
+    from snap_tpu_torch.index.index import GenomeIndex
+    from snap_tpu_torch.io import output
+
+    c5_pairs, src = plant_duplicate_pairs(hg["pairs"], MESH_PAIRS)
+    n5 = len(c5_pairs[2])
+    f1, f2 = (os.path.join(workdir, f"config5_{e + 1}.fq") for e in range(2))
+    for e, fq_e in enumerate((f1, f2)):
+        write_fastq(fq_e, c5_pairs[0][e], c5_pairs[1][e], c5_pairs[2])
+    out = os.path.join(workdir, "config5.bam")
+    c5_argv = lambda a, b, o: ["paired", idx_dir, a, b, "-o", o, "-so", "-ishards", "2"]  # noqa: E731
+    # the card-vs-CPU check first: its CPU run goes beside the timed run,
+    # and its card run reshards the index for the new mesh and places it
+    # (to_mesh, kept for the timed run): the set-up a new mesh costs
+    c5_check, _ = plant_duplicate_pairs(hg["pairs"], MESH_CHECK_PAIRS)
+    first = {}
+    with timers(first, [(GenomeIndex, "to_mesh")]):
+        paired_card_check("mesh", "mesh_config5", c5_argv, workdir, c5_check,
+                          len(c5_check[2]), positions=CONFIG5_POSITIONS, ext=".bam",
+                          submit=submit)
+    place_s = first["to_mesh"][0]
+    c5_calls = {name: [] for name in KERNEL_SOURCES}
+    with recording(c5_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}):
+        crun = run_paired(c5_argv(f1, f2, out), phase="mesh",
+                          devices=[torch.device(CARD)] * CONFIG5_POSITIONS,
+                          owners=[(output.OutputWriter, "close"), (GenomeIndex, "to_mesh")])
+    replays["config5_batch"] = replay_launches(c5_calls, "Config 5 batches", "mesh")
+    del c5_calls
+    if crun["mesh"] != {"data": CONFIG5_POSITIONS // 2, "index": 2}:
+        fail("mesh", f"config5 ran mesh {crun['mesh']}")
+    bam = config5_bam_checks(out, src)
+    summ = check_run("mesh", "config5", crun, out, 2 * n5, hg38_summary)
+    sort_s = crun["host_seconds"].get("close", {}).get("s")
+    rate = n5 / (crun["wall_s"] - crun["host_seconds"]["to_mesh"]["s"])
+    runs["config5"] = {"launches": crun["launches"], "pairs_per_s": rate,
+                       "sort_and_write_s": sort_s, "first_to_mesh_s": place_s}
+    emit({"phase": "mesh", "ok": True, "run": "config5", "pairs": n5,
+          "positions": CONFIG5_POSITIONS, "timed_run": crun, "bam": bam, "sam": summ,
+          "pairs_per_s": rate, "first_to_mesh_s": place_s, "sort_and_write_s": sort_s,
+          "replays": replays["config5_batch"]})
     empty = [k for k in KERNEL_SOURCES
              if not any(rp[k]["launches"] for rp in replays.values())]
     if empty:
         fail("mesh", f"no launch of {empty} recorded on the mesh path")
-    return {"runs": runs, "replays": replays}, checks
+    return {"runs": runs, "replays": replays}
 
 
 APPS_READS = 2048
@@ -2563,7 +2861,8 @@ def cpu_worker(todo, done) -> None:
     """CpuChecks' worker process: on the upper half of the host's cores
     (torch's threads as many), each queued (i, phase, argv, paired)
     command through the port's CLI on the CPU; puts (i, error, wall
-    seconds) back. Stops at None, or after a run that failed."""
+    seconds) back; a check with positions runs on the CPU listed that
+    many times (a mesh). Stops at None, or after a run that failed."""
     cores = sorted(os.sched_getaffinity(0))
     mine = cores[len(cores) // 2:]
     os.sched_setaffinity(0, mine)
@@ -2571,9 +2870,13 @@ def cpu_worker(todo, done) -> None:
 
     torch.set_num_threads(len(mine))
     while (job := todo.get()) is not None:
-        i, phase, argv, paired = job
+        i, phase, argv, paired, positions = job
         try:
-            r = (run_paired if paired else run_single)(argv, device="cpu", phase=phase)
+            if paired:
+                r = run_paired(argv, device="cpu", phase=phase,
+                               devices=[torch.device("cpu")] * positions if positions else None)
+            else:
+                r = run_single(argv, device="cpu", phase=phase)
         except BaseException as e:  # fail() exits; its message is on stderr
             done.put((i, repr(e), None))
             return
@@ -2598,7 +2901,8 @@ class CpuChecks:
 
     def submit(self, checks: list) -> None:
         for c in checks:
-            self.todo.put((len(self.checks), c["phase"], c["cpu_argv"], bool(c.get("paired"))))
+            self.todo.put((len(self.checks), c["phase"], c["cpu_argv"], bool(c.get("paired")),
+                           c.get("positions", 0)))
             self.checks.append(c)
 
     def finish(self) -> list:
@@ -2758,8 +3062,7 @@ def main() -> None:
             hg38, hg, checks = phase_hg38(args.seed, ctx, sam, paired, wd)
             cpu.submit(checks)
             seconds["hg38"], t0 = time.time() - t0, time.time()
-            mesh, checks = phase_mesh(hg, sam, wd)
-            cpu.submit(checks)
+            mesh = phase_mesh(hg, sam, wd, cpu.submit)
             seconds["mesh"], t0 = time.time() - t0, time.time()
             ksum = phase_kernels(calls, base)
             seconds["kernels"], t0 = time.time() - t0, time.time()
@@ -2777,4 +3080,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.path.insert(0, HERE)
+        mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

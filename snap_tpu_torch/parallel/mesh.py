@@ -13,13 +13,19 @@ runs on the union.
 A mesh here is an [n_data, n_index] grid of torch devices. A device may
 stand at several positions (eight "cpu"s in the tests, cuda:0 twice on
 one card). Under an initialised torch.distributed group the mesh also
-records the rank that owns each position: every function then runs the
-positions this process owns, takes and returns the rows of its own data
-rows, and reduces the dp_overflow flag across ranks. The collectives of
-snap_tpu's shard_map become plain tensor operations: the tiled
-all_gather over 'index' is a torch.cat along K, psum a sum, pmax a max.
-Outputs of several data rows are concatenated on the mesh's primary
-device (the first device of this process's first data row).
+records the rank that owns each position, in any layout: a data row's
+positions may belong to several ranks. Every function runs the
+positions this process owns, takes and returns the rows of every data
+row in which it owns a position (each rank of a shared row passes that
+row's reads and gets its winners back, replicated over 'index' as
+snap_tpu's P("data") out-spec replicates them), and reduces the
+dp_overflow flag across ranks. The collectives of snap_tpu's shard_map
+over 'index' gather a data row's per-position tiles in column order:
+inside one process a local gather, across processes an all_gather over
+the row's process subgroup (on the card under nccl, through the host
+under gloo). The tiled all_gather is then a torch.cat along K, psum a
+sum, pmax a max. Outputs of several data rows are concatenated on the
+mesh's primary device (this process's first position).
 """
 
 from __future__ import annotations
@@ -71,7 +77,13 @@ def _group_rank() -> int:
 
 class Mesh:
     """An [n_data, n_index] grid of torch devices, with the rank that owns
-    each position when the grid spans the processes of a group."""
+    each position when the grid spans the processes of a group.
+
+    local_cols[i] lists the index columns j of data row i that this
+    process owns (every row it owns a position in is a local row); a row
+    whose positions belong to several ranks gets a process subgroup
+    (row_groups[i] = (group, its sorted ranks)), made by every rank of
+    the default group in row order, members or not, as new_group needs."""
 
     def __init__(self, devices, ranks=None):
         self.devices = tuple(
@@ -80,32 +92,57 @@ class Mesh:
         n_index = len(self.devices[0])
         if any(len(row) != n_index for row in self.devices):
             raise ValueError("mesh rows must all have n_index devices")
+        self.shape = {"data": len(self.devices), "index": n_index}
         self.ranks = None
         if ranks is not None:
             self.ranks = tuple(tuple(int(r) for r in row) for row in ranks)
-            for row in self.ranks:
-                # the index-axis merge is a local torch.cat: the index
-                # shards of one data row must live in one process
-                if len(set(row)) != 1:
-                    raise ValueError(
-                        "every position of a mesh data row must belong "
-                        f"to one rank; got ranks {row}"
-                    )
-        self.shape = {"data": len(self.devices), "index": n_index}
+            if len(self.ranks) != len(self.devices) or any(
+                len(row) != n_index for row in self.ranks
+            ):
+                raise ValueError("the rank grid must have the mesh's shape")
+        if self.multiprocess and _group_size() <= 1:
+            raise RuntimeError(
+                "a mesh over several ranks needs an initialised "
+                "torch.distributed group of them"
+            )
         rank = _group_rank() if self.ranks is not None else 0
-        self.local_rows = tuple(
-            i for i in range(self.shape["data"])
-            if self.ranks is None or self.ranks[i][0] == rank
-        )
+        self.local_cols = {}
+        for i in range(self.shape["data"]):
+            cols = tuple(
+                j for j in range(n_index)
+                if self.ranks is None or self.ranks[i][j] == rank
+            )
+            if cols:
+                self.local_cols[i] = cols
+        self.local_rows = tuple(self.local_cols)
+        self.row_groups = {}
+        if self.multiprocess:
+            import torch.distributed as dist
+
+            made = {}
+            for i, row in enumerate(self.ranks):
+                members = tuple(sorted(set(row)))
+                if len(members) < 2:
+                    continue
+                if members not in made:
+                    made[members] = dist.new_group(list(members))
+                if i in self.local_cols:
+                    self.row_groups[i] = (made[members], members)
         if not self.local_rows:
-            raise ValueError(f"rank {rank} owns no row of the mesh")
-        self.primary = self.devices[self.local_rows[0]][0]
+            raise ValueError(f"rank {rank} owns no position of the mesh")
+        i0 = self.local_rows[0]
+        self.primary = self.devices[i0][self.local_cols[i0][0]]
 
     @property
     def multiprocess(self) -> bool:
         return self.ranks is not None and len(
             {r for row in self.ranks for r in row}
         ) > 1
+
+    def row_device(self, i: int) -> torch.device:
+        """The device of this process's first position in data row i,
+        where the row's merged tile and its selection live."""
+        return self.devices[i][self.local_cols[i][0]]
 
 
 def default_devices(device=None):
@@ -151,8 +188,10 @@ def make_mesh(n_data: int, n_index: int, devices=None, ranks=None) -> Mesh:
 class ShardedIndex:
     """A stacked [n_shards, ...] index placed on a mesh: shard j's tables
     on the devices of index column j, the genome on every device. Only
-    the positions this process owns are placed; a device listed at
-    several positions holds one copy of the genome and of each shard."""
+    the positions (i, j) this process owns are placed, so under one
+    process per card a rank holds only its own index shards; a device
+    listed at several positions holds one copy of the genome and of
+    each shard."""
 
     def __init__(self, arrays: dict, genome_bases: np.ndarray, mesh: Mesh):
         # snap_tpu's sharded layout: the stacked hit lists and the genome
@@ -173,7 +212,8 @@ class ShardedIndex:
         shard_on: dict[tuple[str, int], tuple] = {}
         self.shards: dict[tuple[int, int], DeviceIndex] = {}
         for i in mesh.local_rows:
-            for j, dev in enumerate(mesh.devices[i]):
+            for j in mesh.local_cols[i]:
+                dev = mesh.devices[i][j]
                 key = str(dev)
                 if key not in genome_on:
                     genome_on[key] = (
@@ -205,12 +245,14 @@ def local_index_view(didx: ShardedIndex) -> DeviceIndex:
     (score_rows / score_candidates never probe the hash table): the
     index at the mesh's primary position."""
     mesh = didx.mesh
-    return didx.at(mesh.local_rows[0], 0)
+    i = mesh.local_rows[0]
+    return didx.at(i, mesh.local_cols[i][0])
 
 
 def _row_slices(mesh: Mesh, n_rows: int):
     """(data row, slice of the local rows) for each data row this process
-    owns; the local rows split evenly over them."""
+    owns a position in; the local rows split evenly over them (every
+    rank of a shared row passes that row's reads)."""
     rows = mesh.local_rows
     if n_rows % len(rows):
         raise ValueError(
@@ -218,6 +260,50 @@ def _row_slices(mesh: Mesh, n_rows: int):
         )
     bl = n_rows // len(rows)
     return [(i, slice(r * bl, (r + 1) * bl)) for r, i in enumerate(rows)]
+
+
+def _row_columns(mesh: Mesh, i: int, held: list, dev) -> list:
+    """Every index column's tensors of data row i, in column order j =
+    0..n_index-1, on `dev`. `held` has one list of tensors for each
+    column this process owns (mesh.local_cols[i] order); the lists have
+    the same shapes and dtypes in every column. A row inside one process
+    needs no transfer; a row spread over ranks all_gathers over its
+    subgroup: each rank's columns byte-packed into one [columns, bytes]
+    buffer, padded to the largest rank's count (the counts follow from
+    the mesh), on the card under nccl and through the host under gloo."""
+    if i not in mesh.row_groups:
+        return [[t.to(dev) for t in ts] for ts in held]
+    import torch.distributed as dist
+
+    group, members = mesh.row_groups[i]
+    row = mesh.ranks[i]
+    own = held[0][0].device
+    where = own if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    packed = torch.stack([
+        torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in ts])
+        for ts in held
+    ]).to(where)
+    c_max = max(row.count(m) for m in members)
+    if packed.shape[0] < c_max:
+        pad = packed.new_zeros((c_max - packed.shape[0], packed.shape[1]))
+        packed = torch.cat([packed, pad])
+    parts = [torch.empty_like(packed) for _ in members]
+    dist.all_gather(parts, packed, group=group)
+    me = dist.get_rank()
+    cols = []
+    for j, owner in enumerate(row):
+        at = row[:j].count(owner)
+        if owner == me:
+            cols.append([t.to(dev) for t in held[at]])
+            continue
+        raw = parts[members.index(owner)][at]
+        ts, o = [], 0
+        for t in held[0]:
+            nb = t.numel() * t.element_size()
+            ts.append(raw[o:o + nb].clone().view(t.dtype).reshape(t.shape).to(dev))
+            o += nb
+        cols.append(ts)
+    return cols
 
 
 def _cat_k(ts, dev) -> torch.Tensor:
@@ -276,6 +362,11 @@ def _at(x: torch.Tensor, sl: slice, dev) -> torch.Tensor:
     return x[sl].to(dev)
 
 
+def _positions(mesh: Mesh, i: int):
+    """(column j, device) of each position this process owns in row i."""
+    return [(j, mesh.devices[i][j]) for j in mesh.local_cols[i]]
+
+
 def align_single_sharded(
     didx: ShardedIndex,
     bases: torch.Tensor,   # [B, L] uint8, this process's rows
@@ -289,13 +380,16 @@ def align_single_sharded(
     along K."""
     parts = []
     for i, sl in _row_slices(mesh, bases.shape[0]):
-        outs = []
-        for j, dev in enumerate(mesh.devices[i]):
-            outs.append(pipeline.align_single_device(
+        held = [
+            list(pipeline.align_single_device(
                 didx.at(i, j), _at(bases, sl, dev), _at(quals, sl, dev),
                 _at(lens, sl, dev), params,
             ))
-        parts.append(_merge_out_across_index(outs, mesh.devices[i][0]))
+            for j, dev in _positions(mesh, i)
+        ]
+        dev0 = mesh.row_device(i)
+        outs = [SingleAlignOut(*ts) for ts in _row_columns(mesh, i, held, dev0)]
+        parts.append(_merge_out_across_index(outs, dev0))
     return _concat_rows(parts, mesh.primary)
 
 
@@ -315,33 +409,34 @@ def align_winners_sharded(
     device-finalize step) over a (data x index) mesh. Each position
     probes its index shard for its data row; the candidate lists
     concatenate along K, and winner selection + MAPQ run once per data
-    row on the merged [B_loc, K * n_index] tile. Returns (packed winners
-    [B+1, 6] int32, merged SingleAlignOut), both on the primary device;
-    the dp_overflow tail row is the max over every data row and rank."""
+    row on the merged [B_loc, K * n_index] tile (by every rank of a
+    shared row, on the same tile). Returns (packed winners [B+1, 6]
+    int32, merged SingleAlignOut), both on the primary device; the
+    dp_overflow tail row is the max over every data row and rank."""
     slices = _row_slices(mesh, bases.shape[0])
     if dp_rows is None:
         b_loc = bases.shape[0] // len(slices)
         dp_rows = max(1024, (b_loc * params.max_cand) // 256)
     bodies, tails, merged_parts = [], [], []
     for i, sl in slices:
-        outs, needs = [], []
-        for j, dev in enumerate(mesh.devices[i]):
+        held = []
+        for j, dev in _positions(mesh, i):
             d = didx.at(i, j)
             b, q, l = _at(bases, sl, dev), _at(quals, sl, dev), _at(lens, sl, dev)
             bundle = pipeline._awd_candidates(d, b, q, l, params)
             out, needs_total = pipeline._awd_score(d, b, q, bundle, params, dp_rows)
-            outs.append(out)
-            needs.append(needs_total)
-        dev0 = mesh.devices[i][0]
-        merged = _merge_out_across_index(outs, dev0)
-        needs_max = torch.stack([n.to(dev0) for n in needs]).max()
+            held.append([*out, needs_total])
+        dev0 = mesh.row_device(i)
+        cols = _row_columns(mesh, i, held, dev0)
+        merged = _merge_out_across_index([SingleAlignOut(*ts[:-1]) for ts in cols], dev0)
+        needs_max = torch.stack([ts[-1] for ts in cols]).max()
         win = pipeline._device_finalize(
             merged, torch.as_tensor(first_alt_start, dtype=i64).to(dev0),
             alt_awareness, max_score_gap, params.use_affine_gap,
             needs_max, dp_rows,
             max_k=params.max_k,
             extra_search_depth=params.extra_search_depth,
-            didx=didx.at(i, 0), bases=_at(bases, sl, dev0),
+            didx=didx.at(i, mesh.local_cols[i][0]), bases=_at(bases, sl, dev0),
             flag_params=params,
         )
         # pack per data row WITHOUT the dp_overflow tail row; the flag
@@ -369,13 +464,15 @@ def align_tier1_sharded(
     tier never probes the hash table)."""
     parts = []
     for i, sl in _row_slices(mesh, bases.shape[0]):
-        outs = []
-        for j, dev in enumerate(mesh.devices[i]):
-            outs.append(pipeline.align_tier1(
+        held = [
+            list(pipeline.align_tier1(
                 didx.at(i, j), _at(bases, sl, dev), _at(quals, sl, dev),
                 _at(lens, sl, dev), params,
             ))
-        dev0 = mesh.devices[i][0]
+            for j, dev in _positions(mesh, i)
+        ]
+        dev0 = mesh.row_device(i)
+        outs = [Tier1Out(*ts) for ts in _row_columns(mesh, i, held, dev0)]
         first = outs[0]
         parts.append(first._replace(
             **{f: _cat_k([getattr(o, f) for o in outs], dev0) for f in _TIER1_CAND_FIELDS},
@@ -417,23 +514,23 @@ def paired_candidates_sharded(
     L = bases0.shape[1]
     halves = []
     for i, sl in _row_slices(mesh, bases0.shape[0]):
-        dev0 = mesh.devices[i][0]
+        dev0 = mesh.row_device(i)
         le = torch.cat([len_eff0[sl], len_eff1[sl]]).to(dev0)
         off = torch.cat([offsets0[sl], offsets1[sl]]).to(dev0)
         sid = torch.cat([set_ids0[sl], set_ids1[sl]]).to(dev0)
         b = torch.cat([bases0[sl], bases1[sl]]).to(dev0)
-        entries = [
-            _phase1_entries(
+        held = [
+            list(_phase1_entries(
                 didx.at(i, j), b.to(dev), le.to(dev), off.to(dev), sid.to(dev), p
-            )
-            for j, dev in enumerate(mesh.devices[i])
+            ))
+            for j, dev in _positions(mesh, i)
         ]
-        e_key, rec, pop, nlk, over = zip(*entries)
+        e_key, rec, pop, nlk, over = zip(*_row_columns(mesh, i, held, dev0))
         # popularity / gather-cap overflow are owned by exactly one shard
         # per lookup; n_lookups is table-independent
         out = _phase2_from_entries(
             _cat_k(e_key, dev0), _psum(rec, dev0), _psum(pop, dev0),
-            nlk[0].to(dev0), _por(over, dev0), le, off, sid, min_sp, max_sp, p, L,
+            nlk[0], _por(over, dev0), le, off, sid, min_sp, max_sp, p, L,
         )
         bl = b.shape[0] // 2
         halves.append({k: (v[:bl], v[bl:]) for k, v in out.items()})

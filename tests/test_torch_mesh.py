@@ -1,11 +1,14 @@
-"""parallel.mesh: snap_tpu_torch's sharded steps on a data = 4 x index = 2
-mesh of eight CPU devices against snap_tpu's on conftest's eight virtual
-devices (the twins of tests/test_sharded.py), and the mesh rules.
+"""parallel.mesh: snap_tpu_torch's sharded steps on meshes of eight CPU
+devices (data x index = 4 x 2, 2 x 4 and 1 x 8) against snap_tpu's on
+conftest's eight virtual devices (the twins of tests/test_sharded.py),
+and the mesh rules. The same meshes with their rows spread over two
+processes are held to these one-process runs by
+tools/multiproc_check_torch.py (tests/test_torch_multiproc.py).
 
-Both packages get the same stacked index (snap_tpu's reshard_index; the
-port's copy must give equal arrays, test_torch_chunked_build.py), the
-same reads and the same ln P(error) table (test_torch_pipeline's
-same_logq says why). Integer arrays must be equal and float arrays equal
+Each package reshards the same flat index with its own reshard_index
+(the port's copy must give equal arrays, test_torch_chunked_build.py);
+both get the same reads and the same ln P(error) table
+(test_torch_pipeline's same_logq says why). Integer arrays must be equal and float arrays equal
 bit for bit, with one exception stated where it is checked: the
 log_prob of escalated (affine-gap) candidates in the per-candidate
 output, which XLA's shard_map graph may round once instead of twice in
@@ -26,6 +29,7 @@ from snap_tpu.index.build import build_index, reshard_index
 from snap_tpu.parallel import mesh as JM
 from snap_tpu_torch.align import intersect_device as TI
 from snap_tpu_torch.align import pipeline as T
+from snap_tpu_torch.index.build import reshard_index as treshard_index
 from snap_tpu_torch.index.index import make_device_index as tmake
 from snap_tpu_torch.parallel import mesh as TM
 from test_torch_index import make_codes, padded_genome
@@ -37,15 +41,32 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 JAX devi
 
 B, L = 64, 100
 CPU8 = [torch.device("cpu")] * 8
+MESHES = ((4, 2), (2, 4), (1, 8))  # (n_data, n_index)
+
+
+_WORLDS: dict = {}
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def world(same_logq, request):
+    return make_world(*request.param)
 
 
 @pytest.fixture(scope="module")
-def world(same_logq):
+def world_4x2(same_logq):
+    return make_world(4, 2)
+
+
+def make_world(n_data, n_index):
+    """Both packages' index, reads and mesh of one shape, built once."""
+    if (n_data, n_index) in _WORLDS:
+        return _WORLDS[(n_data, n_index)]
     rng = np.random.default_rng(7)
     codes = make_codes("repeat25", rng, 30_000)
     genome = padded_genome(codes)
     flat = build_index(genome, seed_len=20)
-    sharded = reshard_index(flat, 2)
+    sharded = reshard_index(flat, n_index)
+    tsharded = treshard_index(flat, n_index)
     seqs = sample_reads(codes, np.random.default_rng(11), B)
     quals = np.random.default_rng(3).choice(
         np.array([35, 43, 53, 63, 73], np.uint8), (B, L)
@@ -53,20 +74,21 @@ def world(same_logq):
     lens = np.full(B, L, np.int32)
     kw = dict(seed_len=20, max_probe=max(flat["max_probe"], sharded["max_probe"]),
               num_seeds=25, hit_cap=8, max_cand=16)
-    jmesh = JM.make_mesh(4, 2)
-    tmesh = TM.make_mesh(4, 2, CPU8)
+    jmesh = JM.make_mesh(n_data, n_index)
+    tmesh = TM.make_mesh(n_data, n_index, CPU8)
     ds = NamedSharding(jmesh, P("data"))
-    return {
+    _WORLDS[(n_data, n_index)] = {
         "codes": codes, "genome": genome, "flat": flat, "sharded": sharded,
         "np": (seqs, quals, lens),
         "jax": (JM.sharded_device_index(sharded, genome.bases, jmesh),
                 *(jax.device_put(jnp.asarray(x), ds) for x in (seqs, quals, lens)),
                 J.AlignParams(**kw), jmesh),
-        "torch": (TM.sharded_device_index(sharded, genome.bases, tmesh),
+        "torch": (TM.sharded_device_index(tsharded, genome.bases, tmesh),
                   *map(torch.from_numpy, (seqs, quals, lens)),
                   T.AlignParams(**kw), tmesh),
-        "fas": int(genome.bases.shape[0]),
+        "fas": int(genome.bases.shape[0]), "n_index": n_index,
     }
+    return _WORLDS[(n_data, n_index)]
 
 
 def assert_out_same(jo, to, what):
@@ -88,7 +110,7 @@ def test_align_single_sharded_matches(world):
     td, tb, tq, tl, tp, tm = world["torch"]
     jo = JM.align_single_sharded(jd, jb, jq, jl, jp, jm)
     to = TM.align_single_sharded(td, tb, tq, tl, tp, tm)
-    assert tuple(to.dist.shape) == (B, 2 * tp.max_cand)  # K from both shards
+    assert tuple(to.dist.shape) == (B, world["n_index"] * tp.max_cand)  # K from every shard
     assert_out_same(jo, to, "align_single_sharded")
 
 
@@ -104,10 +126,16 @@ def test_align_winners_sharded_matches(world):
     assert not w.dp_overflow and w.found.sum() > 0.9 * B
 
 
-def test_winners_sharded_match_single_device(world):
+def test_winners_sharded_match_single_device(world_4x2):
     """The port's mesh step against its own single-device monolithic step:
     the same final alignment of every found read (test_sharded.py's
-    check, on the port alone)."""
+    check, on the port alone), on the 4 x 2 mesh. With 4 or 8 index
+    shards the merged tile holds K candidates from each shard, and one
+    read of 64 ends with another alignment or MAPQ than on the flat
+    index (K in all); the port's meshes equal snap_tpu's there
+    (test_align_winners_sharded_matches), so snap_tpu's differ from its
+    flat index alike."""
+    world = world_4x2
     td, tb, tq, tl, tp, tm = world["torch"]
     single = tmake(world["flat"], world["genome"].bases, "cpu")
     w1 = T.HostWinners(T.align_winners_device(single, tb, tq, tl, torch.tensor(world["fas"]), tp)[0])
@@ -135,7 +163,7 @@ def test_dp_overflow_redo_matches(world):
     assert tuple(tt._fields) == tuple(jt._fields)
     for f in jt._fields:
         assert_same(getattr(jt, f), getattr(tt, f), f"tier1.{f}")
-    assert tuple(tt.cand_loc.shape) == (B, 2 * tp.max_cand)
+    assert tuple(tt.cand_loc.shape) == (B, world["n_index"] * tp.max_cand)
 
 
 def test_paired_candidates_sharded_matches(world):
@@ -217,9 +245,12 @@ def test_mesh_layout():
     assert TM.default_devices("cpu") == ([torch.device("cpu")], None)
     m = TM.make_mesh(2, 2, CPU8)
     assert m.local_rows == (0, 1) and m.primary == torch.device("cpu")
+    assert m.local_cols == {0: (0, 1), 1: (0, 1)} and not m.row_groups
     assert not m.multiprocess
-    # the index shards of a data row must live in one process
-    with pytest.raises(ValueError, match="one rank"):
+    # a data row may span ranks, but only inside an initialised group
+    with pytest.raises(RuntimeError, match="initialised torch.distributed group"):
         TM.make_mesh(2, 2, CPU8[:4], ranks=[0, 1, 0, 1])
+    with pytest.raises(ValueError, match="rank grid"):
+        TM.Mesh([CPU8[:2]] * 2, ranks=[[0, 0]])
     with pytest.raises(ValueError, match="needs 8 devices"):
         TM.make_mesh(4, 2, CPU8[:4])

@@ -13,6 +13,11 @@ reference gets the port's ln P(error) table (test_torch_single.py says
 why). The port's aligners must have run on their mesh, and its
 SingleEndAligner must have taken the dp_overflow redo through
 align_tier1_sharded on a batch whose DP tier overflows.
+
+BASELINE config 5 in one run (tools/demo_config5.py's shape): `paired
+-ishards 2 -so` on the 4 x 2 mesh to a sorted, duplicate-marked BAM with
+its .bai, on the fixture's pairs plus 8% of them planted again under new
+names, .bam and .bai byte for byte.
 """
 
 import os
@@ -38,6 +43,9 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 JAX devi
 INDEX = ["index", "g.fa", "idx", "-s", "20"]
 SINGLE = ["single", "idx", "r.fq", "-o", "out.sam", "-b", "62", "-ishards", "2"]
 PAIRED = ["paired", "idx", "r1.fq", "r2.fq", "-o", "pairs.sam", "-b", "32", "-ishards", "2"]
+CONFIG5 = ["paired", "idx", "c5_1.fq", "c5_2.fq", "-o", "c5.bam", "-so", "-b", "32",
+           "-ishards", "2"]
+DUP_FRAC = 0.08  # tools/demo_config5.py's --dup-frac
 
 
 def run_jax(directory, argv, n_dev=8):
@@ -149,6 +157,66 @@ def test_paired_ishards2_on_eight_devices(dirs):
     assert calls["paired_candidates_sharded"] == 3  # 96 pairs at -b 32
     assert al.branches["device_intersect"] == 96, al.branches
     same_file(dirs, "pairs.sam")
+
+
+def plant_duplicates(directory, seed: int = 5) -> np.ndarray:
+    """Config 5's inputs as tools/demo_config5.py plants them: the pairs
+    of r1.fq / r2.fq, then int(DUP_FRAC * pairs) of them again under the
+    names dup0, dup1, ... (the same bases and qualities), in c5_1.fq /
+    c5_2.fq. Returns the source pair of each duplicate."""
+    ends = []
+    for k in (1, 2):
+        lines = (directory / f"r{k}.fq").read_bytes().split(b"\n")
+        ends.append([lines[i:i + 4] for i in range(0, len(lines) - 3, 4)])
+    n = len(ends[0])
+    src = np.random.default_rng(seed).choice(n, size=int(n * DUP_FRAC), replace=False)
+    for k in (0, 1):
+        recs = ends[k] + [[b"@dup%d" % j, *ends[k][i][1:]] for j, i in enumerate(src)]
+        (directory / f"c5_{k + 1}.fq").write_bytes(b"".join(b"\n".join(r) + b"\n" for r in recs))
+    return src
+
+
+def test_config5_sorted_dupmarked_bam_on_eight_devices(dirs):
+    """Paired alignment over the data 4 x index 2 mesh to a sorted,
+    duplicate-marked BAM and its .bai in one run: snap_tpu's bytes. Every
+    mapped record of a planted duplicate carries 0x400, save where its
+    source pair is itself a duplicate of another pair by chance (both
+    mates at the same place and strand): there are none of those in this
+    input. An unmapped end is never marked (SNAP marks mapped reads
+    only); one planted pair has one, its source's junk first end."""
+    from snap_tpu_torch.io.bam import read_bam
+
+    src = plant_duplicates(dirs["jax"])
+    assert np.array_equal(plant_duplicates(dirs["torch"]), src) and src.size == 7
+    run_jax(dirs["jax"], CONFIG5)
+    made, calls = run_torch(dirs["torch"], CONFIG5)
+    (al,) = made
+    assert isinstance(al, tpd.PairedEndAligner)
+    assert (al.mesh.shape["data"], al.mesh.shape["index"]) == (4, 2)
+    assert calls["paired_candidates_sharded"] == 4  # 103 pairs at -b 32
+    for suffix in (".bam", ".bam.bai"):
+        got = (dirs["torch"] / f"c5{suffix}").read_bytes()
+        assert got == (dirs["jax"] / f"c5{suffix}").read_bytes(), suffix
+    header, _, recs = read_bam(str(dirs["torch"] / "c5.bam"))
+    assert "SO:coordinate" in header and len(recs) == 2 * 103
+    # mapped records in coordinate order (tools/demo_config5.py's check)
+    placed = [(r.ref_id, r.pos0) for r in recs if not r.flag & 0x4]
+    assert placed == sorted(placed)
+    where = {}
+    for r in recs:
+        where.setdefault(r.qname.split(b"_")[0], []).append(
+            (r.flag & 0x40, r.ref_id, r.pos0, bool(r.flag & 0x10)))
+    originals = {k: sorted(v) for k, v in where.items() if not k.startswith(b"dup")}
+    chance = [i for i in src if sum(v == originals[b"p%d" % i] for v in originals.values()) > 1]
+    assert not chance, chance
+    unmapped = 0
+    for j, i in enumerate(src):
+        dup = [r for r in recs if r.qname == b"dup%d" % j]
+        assert len(dup) == 2, (j, i)
+        for r in dup:
+            assert bool(r.flag & 0x400) != bool(r.flag & 0x4), (j, i, r.flag)
+            unmapped += bool(r.flag & 0x4)
+    assert unmapped == 1
 
 
 def test_single_ishards2_on_one_device(dirs):

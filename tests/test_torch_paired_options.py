@@ -266,23 +266,33 @@ def test_planned_pairs_vs_per_pair_byte_parity(tmp_path):
         assert x == y, (x, y)
 
 
-def test_mesh_raises_naming_a13(tmp_path):
+def test_mesh_raises_naming_a13(tmp_path, monkeypatch):
     """A PairedEndAligner runs on its mesh's primary device; given a mesh
     over several processes it raises (SAM is written by one process, as
-    in snap_tpu)."""
+    in snap_tpu). Such a mesh needs an initialised group: without one
+    the mesh itself raises; the aligner's refusal is checked as rank 0
+    of a two-rank group (the group's size, rank and subgroups stubbed)."""
     import torch
 
     from snap_tpu_torch.align.pipeline import AlignParams
     from snap_tpu_torch.index.index import GenomeIndex
+    from snap_tpu_torch.parallel import mesh as tmesh
     from snap_tpu_torch.parallel.mesh import make_mesh
 
     g = Genome(bases=np.random.default_rng(1).integers(0, 4, 4096).astype(np.uint8),
                contigs=[Contig(name="c", start=0, length=4096)])
     idx = GenomeIndex.build(g, seed_len=20, device="cpu")
     cpu4 = [torch.device("cpu")] * 4
+    with pytest.raises(RuntimeError, match="initialised torch.distributed group"):
+        make_mesh(2, 2, cpu4, ranks=[0, 0, 1, 1])
+    with monkeypatch.context() as mp:
+        mp.setattr(tmesh, "_group_size", lambda: 2)
+        mp.setattr(tmesh, "_group_rank", lambda: 0)
+        mp.setattr(torch.distributed, "new_group", lambda ranks: None)
+        two_procs = make_mesh(2, 2, cpu4, ranks=[0, 0, 1, 1])
+    assert two_procs.multiprocess and two_procs.local_rows == (0,)
     with pytest.raises(ValueError, match="one process"):
-        tpd.PairedEndAligner(idx, AlignParams(seed_len=20),
-                             mesh=make_mesh(2, 2, cpu4, ranks=[0, 0, 1, 1]))
+        tpd.PairedEndAligner(idx, AlignParams(seed_len=20), mesh=two_procs)
     mesh = make_mesh(2, 2, cpu4)
     idx.to_mesh(mesh, 2)
     al = tpd.PairedEndAligner(idx, AlignParams(seed_len=20), mesh=mesh)

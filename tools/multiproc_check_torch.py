@@ -12,9 +12,24 @@ production align_winners_sharded step on its positions, and checks:
      max-reduced across the processes, equals the single-process tail;
   2. AlignerStats sum across the processes (stats.reduce_across_hosts).
 
-Two meshes run: data = 8 x index = 1 (what snap_tpu's tool proves) and
-data = 4 x index = 2 (each process owns two whole data rows, so the
-index-axis merge stays inside a process).
+Two meshes run on all B reads with the launcher's rank order (ranks 0-3
+then 4-7, row-major): data = 8 x index = 1 (what snap_tpu's tool
+proves) and data = 4 x index = 2 (each process owns two whole data
+rows). Three more run on the first SPLIT_READS reads with rank grids
+whose data rows span both processes, so the index-axis merge is an
+all_gather over a row's process subgroup:
+
+  1x8          ((0, 0, 0, 0, 1, 1, 1, 1))   one row, half a row each
+  2x4-alt      ((0, 1, 0, 1), (0, 1, 0, 1)) columns interleaved (the
+                                            gather must keep column order)
+  2x4-uneven   ((0, 0, 0, 1), (0, 1, 1, 1)) 3 + 1 and 1 + 3 columns (the
+                                            gather pads to the larger count)
+
+On each of them align_winners_sharded, align_tier1_sharded and
+paired_candidates_sharded (SPLIT_PAIRS pairs of the world) run: both
+ranks of a shared row return identical rows, and every row equals the
+single-process run of the same mesh; the stats sum counts each read
+once, at the rank owning its row's column 0.
 
 Run:  python tools/multiproc_check_torch.py
 Exit 0 and a final "MULTIPROC OK" line on success. Imports no JAX.
@@ -40,6 +55,15 @@ L = 100
 GLEN = 200_000
 SEED_LEN = 20
 MESHES = ((8, 1), (4, 2))  # (n_data, n_index)
+SPLIT_READS = 128
+SPLIT_PAIRS = 64
+SPLIT_MESHES = {  # name: rank grid [n_data][n_index]
+    "1x8": ((0, 0, 0, 0, 1, 1, 1, 1),),
+    "2x4-alt": ((0, 1, 0, 1), (0, 1, 0, 1)),
+    "2x4-uneven": ((0, 0, 0, 1), (0, 1, 1, 1)),
+}
+PAIR_KW = dict(num_seeds=8, max_cand=8, max_k_indels=40)
+MIN_SP, MAX_SP = 50, 500
 
 
 def build_world():
@@ -65,6 +89,72 @@ def build_world():
     quals = np.full((B, L), ord("I"), dtype=np.uint8)
     lens = np.full(B, L, dtype=np.int32)
     return genome, index, reads, quals, lens
+
+
+def build_pairs(genome):
+    """SPLIT_PAIRS read pairs of the world's genome (inserts 250-450, the
+    second end reverse-complemented), as paired_candidates_sharded takes
+    them: per side bases, clipped lengths, probe offsets, set ids."""
+    from snap_tpu_torch.align.intersect_device import probe_offsets_for
+
+    codes = np.asarray(genome.bases)[1000 : 1000 + GLEN]
+    rng = np.random.default_rng(9)
+    n = SPLIT_PAIRS
+    p1 = rng.integers(0, GLEN - 500, size=n)
+    ins = rng.integers(250, 450, size=n)
+    r1 = codes[p1[:, None] + np.arange(L)[None, :]]
+    r2 = (3 - codes[(p1 + ins - L)[:, None] + np.arange(L)[None, :]][:, ::-1]).astype(np.uint8)
+    mut = rng.random(r1.shape) < 0.01
+    r1 = np.where(mut, rng.integers(0, 4, r1.shape), r1).astype(np.uint8)
+    len_eff = np.full(n, L, np.int32)
+    offsets, set_ids = probe_offsets_for(len_eff, L, SEED_LEN, PAIR_KW["num_seeds"])
+    return [(r1, r2), (len_eff, len_eff), (offsets, offsets), (set_ids, set_ids)]
+
+
+def split_layout(grid, rank):
+    """The reads and pairs (global indices) rank passes on a mesh of
+    rank grid `grid`: every data row it owns a position in, each row
+    SPLIT_READS / n_data reads and SPLIT_PAIRS / n_data pairs."""
+    rows = [i for i, row in enumerate(grid) if rank is None or rank in row]
+    per_r, per_p = SPLIT_READS // len(grid), SPLIT_PAIRS // len(grid)
+    reads = np.concatenate([np.arange(i * per_r, (i + 1) * per_r) for i in rows])
+    pairs = np.concatenate([np.arange(i * per_p, (i + 1) * per_p) for i in rows])
+    return reads, pairs
+
+
+def run_split(mesh, index, genome, reads, quals, lens, pairs, read_rows, pair_rows):
+    """The three sharded functions on a mesh over this process's rows:
+    the winners (rows + tail), every tier-1 field and every paired field
+    as numpy arrays, the paired ones reordered per pair ([side0 | side1]
+    along the last axis of a [pairs, 2, ...] array)."""
+    import torch
+
+    from snap_tpu_torch.align.intersect_device import DeviceIntersectParams
+    from snap_tpu_torch.align.pipeline import AlignParams
+    from snap_tpu_torch.parallel.mesh import (
+        align_tier1_sharded, align_winners_sharded, paired_candidates_sharded,
+    )
+
+    index.to_mesh(mesh, mesh.shape["index"])
+    params = AlignParams(
+        seed_len=SEED_LEN, max_probe=index.max_probe, num_seeds=25,
+        hit_cap=8, max_cand=16,
+    )
+    t = lambda a, rows: torch.from_numpy(np.ascontiguousarray(a[rows]))  # noqa: E731
+    b, q, ln = (t(a, read_rows) for a in (reads, quals, lens))
+    d = index.device_sharded
+    out = {"win": align_winners_sharded(
+        d, b, q, ln, int(np.asarray(genome.bases).shape[0]), params, mesh)[0].numpy()}
+    t1 = align_tier1_sharded(d, b, q, ln, params, mesh)
+    out.update({f"t1_{f}": v.numpy() for f, v in zip(t1._fields, t1)})
+    dip = DeviceIntersectParams(seed_len=SEED_LEN, max_probe=index.max_probe, **PAIR_KW)
+    args = [t(side, pair_rows) for a in pairs for side in a]
+    pc = paired_candidates_sharded(d, *args, MIN_SP, MAX_SP, dip, mesh)
+    n = len(pair_rows)
+    for k, v in pc.items():
+        v = v.numpy()
+        out[f"pc_{k}"] = np.stack([v[:n], v[n:]], axis=1)
+    return out
 
 
 def run_step(mesh, n_index, index, genome, reads, quals, lens, local_rows):
@@ -116,6 +206,25 @@ def child_main(rank: int) -> None:
     np.savez(os.path.join(os.environ["MPC_TMP"], f"part{rank}.npz"),
              idx=local_rows, **out)
 
+    from snap_tpu_torch.parallel.mesh import Mesh
+
+    pairs = build_pairs(genome)
+    for name, grid in SPLIT_MESHES.items():
+        mesh = Mesh([[torch.device("cpu")] * len(grid[0])] * len(grid), grid)
+        assert mesh.multiprocess and mesh.row_groups, name
+        read_rows, pair_rows = split_layout(grid, rank)
+        got = run_split(mesh, index, genome, reads, quals, lens, pairs, read_rows, pair_rows)
+        np.savez(os.path.join(os.environ["MPC_TMP"], f"split{rank}_{name}.npz"),
+                 reads=read_rows, pairs=pair_rows, **got)
+        # each read counted once: at the rank owning its row's column 0
+        from snap_tpu_torch.stats import AlignerStats, reduce_across_hosts
+
+        st = AlignerStats()
+        st.total = sum(SPLIT_READS // len(grid) for row in grid if row[0] == rank)
+        st = reduce_across_hosts(st)
+        assert st.total == SPLIT_READS, (name, st.total)
+        print(f"[proc {rank}] {name} stats_total={st.total} OK", flush=True)
+
     # the dp_overflow tail's reduction across the processes (a pmax)
     from snap_tpu_torch.parallel.mesh import _max_across_ranks
 
@@ -163,6 +272,8 @@ def parent_main() -> None:
             env=env,
         ))
     try:
+        # the single-process runs of the same meshes, while the group runs
+        refs = single_process_refs()
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
         for p in procs:
@@ -170,14 +281,10 @@ def parent_main() -> None:
                 p.kill()
     assert all(rc == 0 for rc in rcs), f"child exit codes {rcs}"
 
-    from snap_tpu_torch.parallel.mesh import make_mesh
-
-    genome, index, reads, quals, lens = build_world()
     parts = [np.load(os.path.join(tmp, f"part{r}.npz")) for r in range(N_PROC)]
     for n_data, n_index in MESHES:
         key = f"{n_data}x{n_index}"
-        mesh = make_mesh(n_data, n_index, [torch.device("cpu")] * (N_PROC * POS_PER_PROC))
-        ref = run_step(mesh, n_index, index, genome, reads, quals, lens, np.arange(B))
+        ref = refs[key]
         got = {}
         for z in parts:
             for i, row in zip(z["idx"], z[key][:-1]):
@@ -189,9 +296,65 @@ def parent_main() -> None:
         found = int(((ref[:-1, 5] >> 8) & 1).sum())
         assert found > 0.9 * B, f"{key}: only {found} reads found"
         print(f"{key}: {B} winner rows identical to the single-process run")
+    for name in SPLIT_MESHES:
+        check_split(tmp, name, refs[name])
     print(f"MULTIPROC OK: {B} reads, {N_PROC} processes x {POS_PER_PROC} "
           "CPU positions over gloo, winners identical to single-process, "
-          "stats summed")
+          f"{len(SPLIT_MESHES)} meshes with rows across processes, stats summed")
+
+
+def single_process_refs() -> dict:
+    """Every mesh's run in this one process (no group, ranks=None), in
+    the children's order, over all the reads (and pairs)."""
+    import torch
+
+    from snap_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    genome, index, reads, quals, lens = build_world()
+    refs = {}
+    for n_data, n_index in MESHES:
+        mesh = make_mesh(n_data, n_index, [torch.device("cpu")] * (N_PROC * POS_PER_PROC))
+        refs[f"{n_data}x{n_index}"] = run_step(
+            mesh, n_index, index, genome, reads, quals, lens, np.arange(B))
+    pairs = build_pairs(genome)
+    for name, grid in SPLIT_MESHES.items():
+        mesh = Mesh([[torch.device("cpu")] * len(grid[0])] * len(grid))
+        refs[name] = run_split(mesh, index, genome, reads, quals, lens, pairs,
+                               *split_layout(grid, None))
+    return refs
+
+
+def check_split(tmp, name, ref) -> None:
+    """Every row the processes returned on split mesh `name` against the
+    single-process run of the same mesh, and the two ranks' copies of a
+    shared row against each other."""
+    seen = {}  # (field, global row) -> the first rank's row
+    shared = 0
+    for r in range(N_PROC):
+        z = np.load(os.path.join(tmp, f"split{r}_{name}.npz"))
+        assert np.array_equal(z["win"][-1], ref["win"][-1]), f"{name}: tail row differs"
+        for key in ref:
+            rows = z["pairs"] if key.startswith("pc_") else z["reads"]
+            body = z[key][:-1] if key == "win" else z[key]
+            want = ref[key][:-1] if key == "win" else ref[key]
+            assert body.shape[0] == rows.size, (name, key, body.shape)
+            for g, row in zip(rows.tolist(), body):
+                if (key, g) in seen:
+                    shared += 1
+                    assert np.array_equal(seen[(key, g)], row), (
+                        f"{name}: {key} row {g} differs between the ranks")
+                seen[(key, g)] = row
+                assert np.array_equal(row, want[g]), (
+                    f"{name}: {key} row {g} differs from the single-process run")
+    for key in ref:
+        n = SPLIT_PAIRS if key.startswith("pc_") else SPLIT_READS
+        assert sum(1 for k, _ in seen if k == key) == n, (name, key)
+    assert shared > 0, f"{name}: no row shared between the ranks"
+    found = int(((ref["win"][:-1, 5] >> 8) & 1).sum())
+    assert found > 0.9 * SPLIT_READS and ref["pc_valid"].any(), name
+    print(f"{name}: {SPLIT_READS} winner and tier-1 rows and {SPLIT_PAIRS} paired "
+          "rows identical to the single-process run; shared rows identical "
+          "across ranks")
 
 
 if __name__ == "__main__":
