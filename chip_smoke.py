@@ -149,6 +149,22 @@ Phases, each printing one JSON line:
            the sort-and-write seconds, its first batches' launches
            replayed. Fails unless every kernel launched on the mesh path
            and the runs meet the hg38 phase's accuracy.
+  profile  the port's profiling tools (tools/profile_step_torch.py,
+           profile_host_torch.py, profile_e2e_torch.py) on the card at
+           their JAX twins' defaults (1 Mbp genome, seed 24, 100 bp
+           reads), each run in this process with the launch counts set
+           to 0 just before and read just after: the step's stages
+           (device ms against wall ms) at 16384 reads and its pipelined
+           rate at 16384, 32768 and 65536; the single-end host half of
+           one 16384-read batch (submit, winners wait, finalize, emit,
+           the reads of each host branch; cProfile's top rows), again on
+           a 25%-repeat genome (PROFILE_RUNS says its cuts); the paired
+           host half of 2048 pairs (_plan_pairs, the per-pair loop, the
+           overflow redo, emit; cProfile), again on a 25%-repeat genome;
+           FASTQ -> SAM of 2 x 16384 reads phase by phase (read, submit,
+           winners wait, finalize, emit). One line a run, the tool's
+           JSON under "result"; fails if a tool fails or if the step
+           tool's run left a kernel unlaunched.
   card_vs_cpu  the first reads of the sam run (1024), the paired run
            (512 pairs), each long and options run (128; 16 at 1500 bp;
            512), the -t 4 run (1024), the hg38 phase's `single` (512:
@@ -165,10 +181,11 @@ Phases, each printing one JSON line:
            go on; the line comes when the last has ended.
 Then a `seconds` line (each phase's wall seconds, and the wait for the
 CPU checks after the kernels phase), one {"kernels": [...]}
-line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run and
-in the timed paired run; the sums over the launches of one 16384-read
-phase-C step of its device time, its per-call time, its plain version's
-time and its bound; the launches replayed; each long, options and mesh
+line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run, in
+the timed paired run and in each run of the profile phase; the sums
+over the launches of one 16384-read phase-C step of its device time,
+its per-call time, its plain version's time and its bound; the launches
+replayed; each long, options and mesh
 run's launches and the daemon's; the hg38 and mesh runs' launches and
 the launches they replayed; the sums over the first batch's launches at
 -rl 256, -rl 400 and 1500 bp), the card's name and power limit, and as
@@ -183,6 +200,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -2857,6 +2875,49 @@ def phase_apps(seed: int, ctx: dict, workdir: str) -> dict:
 
 
 
+# (run, tool module under tools/, argv): the JAX twins' defaults, except
+# the repeat runs: one pass and no warm pass (the process is warm), so
+# that a batch whose reads take the host's per-read redo paths stays
+# inside the phase's time
+PROFILE_RUNS = (
+    ("step", "profile_step_torch", ["--sizes", "16384,32768,65536"]),
+    ("host_single", "profile_host_torch", ["single", "--cprofile"]),
+    ("host_single_repeat", "profile_host_torch",
+     ["single", "--repeat-frac", "0.25", "--iters", "1", "--warm", "0", "--cprofile"]),
+    ("host_paired", "profile_host_torch", ["paired", "--cprofile"]),
+    ("host_paired_repeat", "profile_host_torch",
+     ["paired", "--repeat-frac", "0.25", "--iters", "1", "--warm", "0", "--cprofile"]),
+    ("e2e", "profile_e2e_torch", ["--batches", "2"]),
+)
+
+
+def phase_profile(workdir: str) -> dict:
+    """Each PROFILE_RUNS tool through its main() on the card, its human
+    lines sent to stderr (the e2e tool's files under workdir); one line a
+    run: the tool's JSON, its wall seconds and each kernel's launches.
+    Returns run -> launches."""
+    tools = os.path.join(HERE, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    out = {}
+    for run, module, argv in PROFILE_RUNS:
+        main = importlib.import_module(module).main
+        if module == "profile_e2e_torch":
+            argv = [*argv, "--workdir", os.path.join(workdir, "profile_e2e")]
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                result, launches = counted(lambda: main([*argv, "--device", "cuda"]))
+        except Exception as e:  # a tool's failure fails the phase
+            fail("profile", f"{module} {' '.join(argv)}: {e!r}")
+        emit({"phase": "profile", "ok": True, "run": run, "argv": argv,
+              "wall_s": time.time() - t0, "launches": launches, "result": result})
+        out[run] = launches
+    if not all(out["step"].get(n, 0) > 0 for n in KERNEL_SOURCES):
+        fail("profile", f"a kernel was never launched in the step tool: {out['step']}")
+    return out
+
+
 def cpu_worker(todo, done) -> None:
     """CpuChecks' worker process: on the upper half of the host's cores
     (torch's threads as many), each queued (i, phase, argv, paired)
@@ -2941,7 +3002,7 @@ class CpuChecks:
 
 def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
                  paired: dict, long: dict, options: dict, hg38: dict, mesh: dict,
-                 apps: dict) -> dict:
+                 apps: dict, profile: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
     run (-b 1024) and in the timed paired run (launches_paired), and the
     sums over the launches_step_c launches of one 16384-read phase-C step
@@ -2958,7 +3019,8 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     hg38 and mesh phases add each of their runs' launches (launches_hg38,
     launches_mesh) and the launches they replayed (hg38_launches_replayed,
     mesh_launches_replayed), the apps phase the daemon's run's launches
-    (launches_daemon)."""
+    (launches_daemon), the profile phase each tool run's
+    (launches_profile)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -2994,6 +3056,7 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
             k[f"{ph}_launches_replayed"] = {t: r[name]["launches"]
                                            for t, r in res["replays"].items()}
         k["launches_daemon"] = apps["daemon"]["launches"][name]
+        k["launches_profile"] = {run: n[name] for run, n in profile.items()}
         k["max_abs_err"] = max([k["max_abs_err"], *(
             r["replays"][name]["max_abs_err"] for r in long.values()), *(
             r[name]["max_abs_err"] for res in (hg38, mesh)
@@ -3064,6 +3127,8 @@ def main() -> None:
             seconds["hg38"], t0 = time.time() - t0, time.time()
             mesh = phase_mesh(hg, sam, wd, cpu.submit)
             seconds["mesh"], t0 = time.time() - t0, time.time()
+            profile = phase_profile(wd)
+            seconds["profile"], t0 = time.time() - t0, time.time()
             ksum = phase_kernels(calls, base)
             seconds["kernels"], t0 = time.time() - t0, time.time()
             cpu.finish()
@@ -3073,7 +3138,7 @@ def main() -> None:
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})
     emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired,
-                      long, options, hg38, mesh, apps))
+                      long, options, hg38, mesh, apps, profile))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
