@@ -165,6 +165,13 @@ Phases, each printing one JSON line:
            winners wait, finalize, emit). One line a run, the tool's
            JSON under "result"; fails if a tool fails or if the step
            tool's run left a kernel unlaunched.
+  bigidx   BASELINE config 4's tools (tools/build_big_index_torch.py,
+           bench_big_torch.py) in this process: the chunked build of a
+           0.02 Gbp genome under a budget of 4 banks (fails under 2),
+           then 4 batches of 1024 reads through the bench on the card,
+           the launch counts set to 0 just before and read just after
+           (fails if a kernel was not launched). One line a tool run,
+           its JSON under "result".
   card_vs_cpu  the first reads of the sam run (1024), the paired run
            (512 pairs), each long and options run (128; 16 at 1500 bp;
            512), the -t 4 run (1024), the hg38 phase's `single` (512:
@@ -174,15 +181,18 @@ Phases, each printing one JSON line:
            Config 5 (256 pairs and 20 planted, a 4 x 2 mesh of the CPU:
            the BAMs' records),
            run on the card in their phase, again on the CPU: at most 2
-           records differing, in MAPQ +-1 only. The CPU runs go to a
-           worker process on the upper half of the host's cores as each
-           phase ends (CpuChecks), grouped by index so that each index
-           is loaded to host memory once, and run while the card phases
-           go on; the line comes when the last has ended.
+           records differing, in MAPQ +-1 only; and the bigidx bench's
+           first batch (1024), its packed winners equal bit for bit.
+           The CPU runs go to a worker process on the upper half of the
+           host's cores as each phase ends (CpuChecks), grouped by index
+           so that each index is loaded to host memory once, and run
+           while the card phases go on; the line comes when the last has
+           ended.
 Then a `seconds` line (each phase's wall seconds, and the wait for the
 CPU checks after the kernels phase), one {"kernels": [...]}
 line (per kernel: its launches in the timed -b 1024 FASTQ->SAM run, in
-the timed paired run and in each run of the profile phase; the sums
+the timed paired run, in each run of the profile phase and in the
+bigidx bench; the sums
 over the launches of one 16384-read phase-C step of its device time,
 its per-call time, its plain version's time and its bound; the launches
 replayed; each long, options and mesh
@@ -2891,17 +2901,22 @@ PROFILE_RUNS = (
 )
 
 
+def tool_main(module: str):
+    """The main() of a tool under tools/."""
+    tools = os.path.join(HERE, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(module).main
+
+
 def phase_profile(workdir: str) -> dict:
     """Each PROFILE_RUNS tool through its main() on the card, its human
     lines sent to stderr (the e2e tool's files under workdir); one line a
     run: the tool's JSON, its wall seconds and each kernel's launches.
     Returns run -> launches."""
-    tools = os.path.join(HERE, "tools")
-    if tools not in sys.path:
-        sys.path.insert(0, tools)
     out = {}
     for run, module, argv in PROFILE_RUNS:
-        main = importlib.import_module(module).main
+        main = tool_main(module)
         if module == "profile_e2e_torch":
             argv = [*argv, "--workdir", os.path.join(workdir, "profile_e2e")]
         t0 = time.time()
@@ -2918,12 +2933,87 @@ def phase_profile(workdir: str) -> dict:
     return out
 
 
+# the BASELINE config 4 tools at a size whose build takes seconds: a
+# budget of 4 banks, so that the chunked, banked, memory-mapped build
+# runs; the bench's batches of CHECK_READS reads, the first of them on
+# the CPU too
+BIGIDX_GBP = "0.02"
+BIGIDX_BUDGET_GB = "0.5"
+BIGIDX_BATCHES = 4
+
+
+def phase_bigidx(workdir: str, submit) -> dict:
+    """tools/build_big_index_torch.py and tools/bench_big_torch.py through
+    their main(), their human lines sent to stderr: the chunked build
+    (fails unless it made 2 or more banks), then BIGIDX_BATCHES batches
+    on the card, every kernel launch counted (fails unless each kernel
+    ran). The bench's first batch runs again on the CPU in CpuChecks
+    (handed to `submit` before the card's run), whose packed winners
+    finish() holds to the card's bit for bit. One line a tool run: its
+    JSON, its wall seconds (and the bench's launches). Returns
+    {"launches"}."""
+    d = os.path.join(workdir, "bigidx")
+    idx = os.path.join(d, "index")
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            built = tool_main("build_big_index_torch")(
+                [idx, "--gbp", BIGIDX_GBP, "--budget-gb", BIGIDX_BUDGET_GB])
+    except Exception as e:  # a tool's failure fails the phase
+        fail("bigidx", f"build_big_index_torch: {e!r}")
+    if built["n_banks"] < 2:
+        fail("bigidx", f"the build made {built['n_banks']} bank(s), not the chunked path")
+    emit({"phase": "bigidx", "ok": True, "run": "build", "wall_s": time.time() - t0,
+          "result": built})
+
+    def bench_argv(device: str, reads: int, tag: str):
+        return [idx, "--reads", str(reads), "--batch", str(CHECK_READS),
+                "--device", device, "--out", os.path.join(d, f"{tag}.json"),
+                "--first-winners", os.path.join(d, f"{tag}_first.npy")]
+
+    check = {"phase": "bigidx", "tag": "bench_first_batch", "reads": CHECK_READS,
+             "tool": "bench_big_torch", "cpu_argv": bench_argv("cpu", CHECK_READS, "cpu"),
+             "cpu_winners": os.path.join(d, "cpu_first.npy"),
+             "card_winners": os.path.join(d, "card_first.npy")}
+    submit([check])
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            rec, launches = counted(lambda: tool_main("bench_big_torch")(
+                bench_argv("cuda", BIGIDX_BATCHES * CHECK_READS, "card")))
+    except Exception as e:
+        fail("bigidx", f"bench_big_torch: {e!r}")
+    check["card_wall_s"] = time.time() - t0
+    if not all(launches.get(n, 0) > 0 for n in KERNEL_SOURCES):
+        fail("bigidx", f"a kernel was never launched in the bench: {launches}")
+    if rec["backend"] != "cuda" or rec["reads"] != BIGIDX_BATCHES * CHECK_READS:
+        fail("bigidx", f"the bench ran {rec['reads']} reads on {rec['backend']}")
+    emit({"phase": "bigidx", "ok": True, "run": "bench", "wall_s": check["card_wall_s"],
+          "launches": launches, "result": rec})
+    return {"launches": launches}
+
+
+def winners_vs_cpu(phase: str, card: str, cpu: str) -> list[dict]:
+    """The rows of two packed-winner arrays (.npy) that differ; fails
+    unless there are none."""
+    a, b = np.load(card), np.load(cpu)
+    if a.shape != b.shape:
+        fail(phase, f"card winners {a.shape}, CPU winners {b.shape}")
+    rows = np.nonzero((a != b).any(axis=1))[0]
+    diffs = [{"row": int(r), "card": a[r].tolist(), "cpu": b[r].tolist()} for r in rows[:4]]
+    if rows.size:
+        fail(phase, f"{rows.size} of {a.shape[0]} packed winner rows differ "
+                    f"between card and CPU: {diffs}")
+    return diffs
+
+
 def cpu_worker(todo, done) -> None:
     """CpuChecks' worker process: on the upper half of the host's cores
     (torch's threads as many), each queued (i, phase, argv, paired)
-    command through the port's CLI on the CPU; puts (i, error, wall
-    seconds) back; a check with positions runs on the CPU listed that
-    many times (a mesh). Stops at None, or after a run that failed."""
+    command through the port's CLI on the CPU (or, when the job names a
+    tool, that tool's main(argv)); puts (i, error, wall seconds) back; a
+    check with positions runs on the CPU listed that many times (a
+    mesh). Stops at None, or after a run that failed."""
     cores = sorted(os.sched_getaffinity(0))
     mine = cores[len(cores) // 2:]
     os.sched_setaffinity(0, mine)
@@ -2931,9 +3021,14 @@ def cpu_worker(todo, done) -> None:
 
     torch.set_num_threads(len(mine))
     while (job := todo.get()) is not None:
-        i, phase, argv, paired, positions = job
+        i, phase, argv, paired, positions, tool = job
         try:
-            if paired:
+            if tool:
+                t0 = time.time()
+                with contextlib.redirect_stdout(sys.stderr):
+                    tool_main(tool)(argv)
+                r = {"wall_s": time.time() - t0}
+            elif paired:
                 r = run_paired(argv, device="cpu", phase=phase,
                                devices=[torch.device("cpu")] * positions if positions else None)
             else:
@@ -2946,9 +3041,10 @@ def cpu_worker(todo, done) -> None:
 
 class CpuChecks:
     """The CPU side of the card-vs-CPU checks (card_check,
-    paired_card_check): each check's command runs again on the CPU in a
-    worker process (cpu_worker) while the card phases go on, and finish()
-    holds the CPU's records to the card's (card_vs_cpu). The port's index
+    paired_card_check, phase_bigidx): each check's command runs again on
+    the CPU in a worker process (cpu_worker) while the card phases go on,
+    and finish() holds the CPU's records to the card's (card_vs_cpu; a
+    tool's packed winners, winners_vs_cpu). The port's index
     cache keeps one index, so checks are submitted grouped by index."""
 
     def __init__(self):
@@ -2963,7 +3059,7 @@ class CpuChecks:
     def submit(self, checks: list) -> None:
         for c in checks:
             self.todo.put((len(self.checks), c["phase"], c["cpu_argv"], bool(c.get("paired")),
-                           c.get("positions", 0)))
+                           c.get("positions", 0), c.get("tool")))
             self.checks.append(c)
 
     def finish(self) -> list:
@@ -2987,7 +3083,10 @@ class CpuChecks:
         self.proc.join(60)
         out = []
         for i, c in enumerate(self.checks):
-            diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
+            if c.get("tool"):  # a tool's packed winners, bit for bit
+                diffs = winners_vs_cpu(c["phase"], c["card_winners"], c["cpu_winners"])
+            else:
+                diffs = card_vs_cpu(c["phase"], c["card"], sam_records(c["cpu_sam"]))
             out.append({"phase": c["phase"], "run": c["tag"], "reads": c["reads"],
                         "records_differ": len(diffs), "diffs": diffs,
                         "card_wall_s": c["card_wall_s"], "cpu_wall_s": wall[i]})
@@ -3002,7 +3101,7 @@ class CpuChecks:
 
 def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
                  paired: dict, long: dict, options: dict, hg38: dict, mesh: dict,
-                 apps: dict, profile: dict) -> dict:
+                 apps: dict, profile: dict, bigidx: dict) -> dict:
     """The summary line: per kernel, its launches in the timed FASTQ->SAM
     run (-b 1024) and in the timed paired run (launches_paired), and the
     sums over the launches_step_c launches of one 16384-read phase-C step
@@ -3020,7 +3119,8 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
     launches_mesh) and the launches they replayed (hg38_launches_replayed,
     mesh_launches_replayed), the apps phase the daemon's run's launches
     (launches_daemon), the profile phase each tool run's
-    (launches_profile)."""
+    (launches_profile), the bigidx phase its bench run's
+    (launches_bigidx)."""
     replays = {**replays, **{f"paired_{k}": v for k, v in paired["replays"].items()}}
     out = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -3057,6 +3157,7 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
                                            for t, r in res["replays"].items()}
         k["launches_daemon"] = apps["daemon"]["launches"][name]
         k["launches_profile"] = {run: n[name] for run, n in profile.items()}
+        k["launches_bigidx"] = bigidx["launches"][name]
         k["max_abs_err"] = max([k["max_abs_err"], *(
             r["replays"][name]["max_abs_err"] for r in long.values()), *(
             r[name]["max_abs_err"] for res in (hg38, mesh)
@@ -3129,6 +3230,8 @@ def main() -> None:
             seconds["mesh"], t0 = time.time() - t0, time.time()
             profile = phase_profile(wd)
             seconds["profile"], t0 = time.time() - t0, time.time()
+            bigidx = phase_bigidx(wd, cpu.submit)
+            seconds["bigidx"], t0 = time.time() - t0, time.time()
             ksum = phase_kernels(calls, base)
             seconds["kernels"], t0 = time.time() - t0, time.time()
             cpu.finish()
@@ -3138,7 +3241,7 @@ def main() -> None:
     emit({"phase": "seconds", "ok": True, **seconds,
           "script": time.time() - T_START})
     emit(kernels_line(ksum, sam["launches"], step_launches, sam["replays"], paired,
-                      long, options, hg38, mesh, apps, profile))
+                      long, options, hg38, mesh, apps, profile, bigidx))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
