@@ -48,7 +48,7 @@ from ..io.sam import (
     FLAG_UNMAPPED,
     SamWriter,
 )
-from ..stats import AlignerStats, ProgressReporter
+from ..stats import RECORDER, AlignerStats, ProgressReporter
 from . import intersect_device, pipeline
 from .intersect import IntersectParams, paired_candidates
 from .paired import PairEndResult, finalize_pair
@@ -1323,31 +1323,35 @@ class PairedEndAligner:
             force_kind=self.force_kind, force_gzip=self.force_gzip,
             keep_unpaired=self.keep_unpaired,
         )))
+        # the loop's stages, each a span with its batch number
+        # (paired.read_wait, paired.align, paired.emit), feed AlignerStats
+        k = 0
         while True:
-            tr = time.time()
-            item = next(batches, None)
-            self.stats.seconds_reading += time.time() - tr
+            with RECORDER.timed("paired.read_wait", batch=k) as sp:
+                item = next(batches, None)
+            self.stats.seconds_reading += sp.seconds
             if item is None:
                 break
             b0, b1 = item
             if not self.ignore_mismatched_ids:
                 self._check_ids(b0, b1)
             self.branches["batches"] += 1
-            ta = time.time()
-            if plan_ok:
-                results, plan = self.align_batch(
-                    b0, b1, plan_writer=writer
-                )
-            else:
-                results, plan = self.align_batch(b0, b1), None
-            self.stats.seconds_aligning += time.time() - ta
-            tw = time.time()
-            if plan is not None:
-                self._emit_planned_pairs(writer, b0, b1, results, plan)
-            else:
-                for i, (r0, r1) in enumerate(results):
-                    self._emit_pair(writer, b0, b1, i, r0, r1)
-            self.stats.seconds_writing += time.time() - tw
+            with RECORDER.timed("paired.align", batch=k, pairs=len(b0)) as sp:
+                if plan_ok:
+                    results, plan = self.align_batch(
+                        b0, b1, plan_writer=writer
+                    )
+                else:
+                    results, plan = self.align_batch(b0, b1), None
+            self.stats.seconds_aligning += sp.seconds
+            with RECORDER.timed("paired.emit", batch=k, pairs=len(b0)) as sp:
+                if plan is not None:
+                    self._emit_planned_pairs(writer, b0, b1, results, plan)
+                else:
+                    for i, (r0, r1) in enumerate(results):
+                        self._emit_pair(writer, b0, b1, i, r0, r1)
+            self.stats.seconds_writing += sp.seconds
+            k += 1
             progress.update(2 * len(b0))
         self.stats.align_seconds = time.time() - t0
         return self.stats

@@ -38,7 +38,7 @@ from ..io.fastq import ReadBatch
 from ..io.readers import single_batches
 from ..io.sam import FLAG_RC, FLAG_UNMAPPED, SamWriter
 from ..options import pass_filter
-from ..stats import AlignerStats, ProgressReporter
+from ..stats import RECORDER, AlignerStats, ProgressReporter
 from .agcigar import compute_ag_cigar_at
 from .cigar import compute_cigar
 from . import pipeline
@@ -738,10 +738,12 @@ class SingleEndAligner:
         """The packed winners as numpy, waiting for the prefetch copy."""
         pf = self._win_futures.pop(id(win), None)
         if pf is None:
-            return win.cpu().numpy()
+            with RECORDER.span("finalize.winners_wait"):
+                return win.cpu().numpy()
         _, host, done = pf
         if done is not None:
-            done.synchronize()
+            with RECORDER.span("finalize.winners_wait"):
+                done.synchronize()
         return host.numpy()
 
     def close(self) -> None:
@@ -848,9 +850,10 @@ class SingleEndAligner:
             )
         (t1, dev_bases, dev_quals) = handles
         self.branches["two_phase"] += len(batch)
-        merged = pipeline.two_phase_merge(
-            self._scoring_didx, t1, dev_bases, dev_quals, self.params
-        )
+        with RECORDER.span("two_phase.merge", reads=len(batch)):
+            merged = pipeline.two_phase_merge(
+                self._scoring_didx, t1, dev_bases, dev_quals, self.params
+            )
         dist = merged["dist"]
         logp = merged["log_prob"]
         ag_score = merged["ag_score"]
@@ -865,132 +868,132 @@ class SingleEndAligner:
         len_eff = merged["len_eff"]
         popular = merged["popular"]
 
+        with RECORDER.span("two_phase.per_read", rows=len(batch)):
+            is_alt = cand_loc >= self.first_alt_start
+            if self.max_dist_fraction > 0.0:
+                # -dp: per-read edit-distance cap of fraction * read length
+                # (SingleAligner.cpp:243-248, LONG_READS builds)
+                limit = np.minimum(
+                    self.params.max_k,
+                    (len_eff.astype(np.float64) * self.max_dist_fraction).astype(
+                        np.int64
+                    ),
+                )
+                valid = valid & (dist <= limit[:, None])
+            n = len(batch)
+            self.stats.lv_calls += int(valid[:n].sum())
+            self.stats.affine_gap_calls += int((escalated & valid)[:n].sum())
 
-        is_alt = cand_loc >= self.first_alt_start
-        if self.max_dist_fraction > 0.0:
-            # -dp: per-read edit-distance cap of fraction * read length
-            # (SingleAligner.cpp:243-248, LONG_READS builds)
-            limit = np.minimum(
-                self.params.max_k,
-                (len_eff.astype(np.float64) * self.max_dist_fraction).astype(
-                    np.int64
-                ),
-            )
-            valid = valid & (dist <= limit[:, None])
-        n = len(batch)
-        self.stats.lv_calls += int(valid[:n].sum())
-        self.stats.affine_gap_calls += int((escalated & valid)[:n].sum())
+            results = []
+            arrays = {
+                "len_eff": len_eff,
+                "clip_before": clip_before,
+                "clip_after": clip_after,
+                "escalated": escalated,
+                "body_loc": body_loc,
+                "indels": merged["indels"],
+            }
+            # vectorized batch finalization when no per-read extras are on
+            batch_finalized = None
+            if not self.emit_alt:
+                from .post import finalize_batch
 
-        results = []
-        arrays = {
-            "len_eff": len_eff,
-            "clip_before": clip_before,
-            "clip_after": clip_after,
-            "escalated": escalated,
-            "body_loc": body_loc,
-            "indels": merged["indels"],
-        }
-        # vectorized batch finalization when no per-read extras are on
-        batch_finalized = None
-        if not self.emit_alt:
-            from .post import finalize_batch
-
-            batch_finalized = finalize_batch(
-                dist[:n], logp[:n], ag_score[:n], end_loc[:n], cand_loc[:n],
-                direction[:n], valid[:n], popular[:n],
-                is_alt=is_alt[:n],
-                alt_awareness=self.alt_awareness,
-                max_score_gap_to_prefer_non_alt=self.max_score_gap,
-                max_k=self.params.max_k,
-                extra_search_depth=self.params.extra_search_depth,
-                use_ukkonen=self.params.use_ukkonen,
-                lv_dists=merged["lv_dist"][:n],
-            )
-        for i in range(len(batch)):
-            orig_len = int(batch.lengths[i])
-            if orig_len < self.min_read_length:
-                results.append({"status": "filtered"})
-                continue
-            if batch_finalized is not None:
-                ra, alt_supp = batch_finalized[i]
-            else:
-                ra, alt_supp = finalize_read(
-                    dist[i], logp[i], ag_score[i], end_loc[i], cand_loc[i],
-                    direction[i], valid[i], int(popular[i]),
-                    is_alt=is_alt[i],
+                batch_finalized = finalize_batch(
+                    dist[:n], logp[:n], ag_score[:n], end_loc[:n], cand_loc[:n],
+                    direction[:n], valid[:n], popular[:n],
+                    is_alt=is_alt[:n],
                     alt_awareness=self.alt_awareness,
-                    emit_alt=self.emit_alt,
                     max_score_gap_to_prefer_non_alt=self.max_score_gap,
                     max_k=self.params.max_k,
                     extra_search_depth=self.params.extra_search_depth,
                     use_ukkonen=self.params.use_ukkonen,
-                    lv_dists=merged["lv_dist"][i],
+                    lv_dists=merged["lv_dist"][:n],
                 )
-            if ra.status == "notfound":
-                results.append({"status": "notfound"})
-                continue
-            if self.stop_on_first_hit:
-                # -f: any in-budget hit, MAPQ forced 0 / MultipleHits
-                # (BaseAligner.cpp:1490-1505)
-                ra.mapq = 0
-                ra.status = "multi"
-                alt_supp = None
-            rec = winner_record(
-                self.genome_np, self.params.max_k, batch, i, arrays,
-                ra.cand_index, ra.direction, ra.dist, int(ra.end_loc),
-                use_m=self.use_m, front_extra=int(front_clips[i]),
-                contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
-            )
-            rec.update(
-                status=ra.status, direction=ra.direction, mapq=ra.mapq,
-                dist=ra.dist,
-            )
-            if alt_supp is not None:
-                srec = winner_record(
+            for i in range(len(batch)):
+                orig_len = int(batch.lengths[i])
+                if orig_len < self.min_read_length:
+                    results.append({"status": "filtered"})
+                    continue
+                if batch_finalized is not None:
+                    ra, alt_supp = batch_finalized[i]
+                else:
+                    ra, alt_supp = finalize_read(
+                        dist[i], logp[i], ag_score[i], end_loc[i], cand_loc[i],
+                        direction[i], valid[i], int(popular[i]),
+                        is_alt=is_alt[i],
+                        alt_awareness=self.alt_awareness,
+                        emit_alt=self.emit_alt,
+                        max_score_gap_to_prefer_non_alt=self.max_score_gap,
+                        max_k=self.params.max_k,
+                        extra_search_depth=self.params.extra_search_depth,
+                        use_ukkonen=self.params.use_ukkonen,
+                        lv_dists=merged["lv_dist"][i],
+                    )
+                if ra.status == "notfound":
+                    results.append({"status": "notfound"})
+                    continue
+                if self.stop_on_first_hit:
+                    # -f: any in-budget hit, MAPQ forced 0 / MultipleHits
+                    # (BaseAligner.cpp:1490-1505)
+                    ra.mapq = 0
+                    ra.status = "multi"
+                    alt_supp = None
+                rec = winner_record(
                     self.genome_np, self.params.max_k, batch, i, arrays,
-                    alt_supp.cand_index, alt_supp.direction, alt_supp.dist,
-                    int(alt_supp.end_loc), use_m=self.use_m,
-                    front_extra=int(front_clips[i]),
+                    ra.cand_index, ra.direction, ra.dist, int(ra.end_loc),
+                    use_m=self.use_m, front_extra=int(front_clips[i]),
                     contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
                 )
-                srec.update(
-                    status=alt_supp.status, direction=alt_supp.direction,
-                    mapq=alt_supp.mapq, dist=alt_supp.dist,
+                rec.update(
+                    status=ra.status, direction=ra.direction, mapq=ra.mapq,
+                    dist=ra.dist,
                 )
-                rec["alt_supplementary"] = srec
-            if self.max_secondary_edit >= 0:
-                secs = collect_secondary_results(
-                    dist[i], logp[i], ag_score[i], end_loc[i], cand_loc[i],
-                    direction[i], valid[i], ra.cand_index, ra.dist,
-                    self.params.max_k, self.max_secondary_edit,
-                    self.max_secondary, is_alt=is_alt[i],
-                    alt_awareness=self.alt_awareness,
-                )
-                sec_recs = []
-                for s in secs:
-                    sr = winner_record(
+                if alt_supp is not None:
+                    srec = winner_record(
                         self.genome_np, self.params.max_k, batch, i, arrays,
-                        s.cand_index, s.direction, s.dist, int(s.end_loc),
-                        use_m=self.use_m, front_extra=int(front_clips[i]),
+                        alt_supp.cand_index, alt_supp.direction, alt_supp.dist,
+                        int(alt_supp.end_loc), use_m=self.use_m,
+                        front_extra=int(front_clips[i]),
                         contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
                     )
-                    sr.update(
-                        status=s.status, direction=s.direction, mapq=0,
-                        dist=s.dist, supplementary=s.supplementary,
+                    srec.update(
+                        status=alt_supp.status, direction=alt_supp.direction,
+                        mapq=alt_supp.mapq, dist=alt_supp.dist,
                     )
-                    sec_recs.append(sr)
-                if sec_recs:
-                    rec["secondaries"] = sec_recs
-            results.append(rec)
+                    rec["alt_supplementary"] = srec
+                if self.max_secondary_edit >= 0:
+                    secs = collect_secondary_results(
+                        dist[i], logp[i], ag_score[i], end_loc[i], cand_loc[i],
+                        direction[i], valid[i], ra.cand_index, ra.dist,
+                        self.params.max_k, self.max_secondary_edit,
+                        self.max_secondary, is_alt=is_alt[i],
+                        alt_awareness=self.alt_awareness,
+                    )
+                    sec_recs = []
+                    for s in secs:
+                        sr = winner_record(
+                            self.genome_np, self.params.max_k, batch, i, arrays,
+                            s.cand_index, s.direction, s.dist, int(s.end_loc),
+                            use_m=self.use_m, front_extra=int(front_clips[i]),
+                            contig_bounds=self.contig_bounds,
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
+                        )
+                        sr.update(
+                            status=s.status, direction=s.direction, mapq=0,
+                            dist=s.dist, supplementary=s.supplementary,
+                        )
+                        sec_recs.append(sr)
+                    if sec_recs:
+                        rec["secondaries"] = sec_recs
+                results.append(rec)
         self._redo_wide(
             batch, results,
             np.flatnonzero(np.asarray(merged["truncated"][:n])),
@@ -1055,63 +1058,70 @@ class SingleEndAligner:
         self.branches[
             "redo_edge_indel" if force_dp else "redo_truncated"
         ] += len(rows)
-        from ..index.host_lookup import host_clip_back
-        from .intersect import wide_single_candidates
+        with RECORDER.span(
+            "redo.wide", reads=len(rows), force_dp=int(force_dp)
+        ) as sp:
+            from ..index.host_lookup import host_clip_back
+            from .intersect import wide_single_candidates
 
-        bases, quals, lens = self._pad(batch)
-        if self.clip_front:
-            from .pipeline import apply_front_clip
+            bases, quals, lens = self._pad(batch)
+            if self.clip_front:
+                from .pipeline import apply_front_clip
 
-            bases, quals, lens, _ = apply_front_clip(bases, quals, lens)
-        sub_b = bases[rows]
-        sub_q = quals[rows]
-        sub_l = lens[rows]
-        len_eff = (
-            host_clip_back(sub_q, sub_l)
-            if self.params.clip_back
-            else sub_l.astype(np.int32)
-        )
-        wc = wide_single_candidates(
-            self.index.host, sub_b, len_eff,
-            self.params.num_lookups, self.params.seed_len,
-            self.params.max_hits, self.params.explore_popular,
-        )
-        # pow2-bucketed shapes so recurring redo sizes hit the jit
-        # cache; rows are processed in chunks bounded by rows*K so a
-        # repeat-heavy batch (every read truncated, hundreds of wide
-        # candidates each) can't ask the device for one giant graph —
-        # the unchunked form compiled a >16GB tier on the 25%-repeat
-        # bench and OOMed HBM
-        per_row_valid = wc.valid.sum(axis=1)
-        order = np.argsort(per_row_valid, kind="stable")
-        CAP = 1 << 18  # max rows*K per scoring call
-        chunks: list[list[int]] = []
-        cur: list[int] = []
-        cur_k = 16
-        for oi in order:
-            nv = int(per_row_valid[oi])
-            k_need = 16
-            while k_need < nv:
-                k_need <<= 1
-            k_new = max(cur_k, k_need)
-            m_new = len(cur) + 1
-            mp = 1
-            while mp < m_new:
-                mp <<= 1
-            if cur and mp * k_new > CAP:
-                chunks.append(cur)
-                cur = [int(oi)]
-                cur_k = k_need
-            else:
-                cur.append(int(oi))
-                cur_k = k_new
-        if cur:
-            chunks.append(cur)
-        for chunk in chunks:
-            self._redo_wide_chunk(
-                batch, results, rows, front_clips, force_dp, wc,
-                sub_b, sub_q, len_eff, chunk,
+                bases, quals, lens, _ = apply_front_clip(bases, quals, lens)
+            sub_b = bases[rows]
+            sub_q = quals[rows]
+            sub_l = lens[rows]
+            len_eff = (
+                host_clip_back(sub_q, sub_l)
+                if self.params.clip_back
+                else sub_l.astype(np.int32)
             )
+            with RECORDER.span("redo.candidates"):
+                wc = wide_single_candidates(
+                    self.index.host, sub_b, len_eff,
+                    self.params.num_lookups, self.params.seed_len,
+                    self.params.max_hits, self.params.explore_popular,
+                )
+            # pow2-bucketed shapes so recurring redo sizes hit the jit
+            # cache; rows are processed in chunks bounded by rows*K so a
+            # repeat-heavy batch (every read truncated, hundreds of wide
+            # candidates each) can't ask the device for one giant graph —
+            # the unchunked form compiled a >16GB tier on the 25%-repeat
+            # bench and OOMed HBM
+            per_row_valid = wc.valid.sum(axis=1)
+            order = np.argsort(per_row_valid, kind="stable")
+            CAP = 1 << 18  # max rows*K per scoring call
+            chunks: list[list[int]] = []
+            cur: list[int] = []
+            cur_k = 16
+            for oi in order:
+                nv = int(per_row_valid[oi])
+                k_need = 16
+                while k_need < nv:
+                    k_need <<= 1
+                k_new = max(cur_k, k_need)
+                m_new = len(cur) + 1
+                mp = 1
+                while mp < m_new:
+                    mp <<= 1
+                if cur and mp * k_new > CAP:
+                    chunks.append(cur)
+                    cur = [int(oi)]
+                    cur_k = k_need
+                else:
+                    cur.append(int(oi))
+                    cur_k = k_new
+            if cur:
+                chunks.append(cur)
+            sp.count(
+                candidates=int(per_row_valid.sum()), chunks=len(chunks)
+            )
+            for chunk in chunks:
+                self._redo_wide_chunk(
+                    batch, results, rows, front_clips, force_dp, wc,
+                    sub_b, sub_q, len_eff, chunk,
+                )
 
     def _redo_wide_chunk(
         self, batch, results, rows, front_clips, force_dp, wc,
@@ -1129,116 +1139,118 @@ class SingleEndAligner:
         Mp = 1
         while Mp < M:
             Mp <<= 1
-        pad2 = lambda a: torch.from_numpy(np.concatenate(
-            [a[ridx], np.zeros((Mp - M,) + a.shape[1:], a.dtype)]
-        )).to(self.device)
-        dev_b, dev_q = pad2(sub_b), pad2(sub_q)
-        t1 = pipeline.score_candidates(
-            self._scoring_didx, dev_b, dev_q, pad2(len_eff),
-            pad2(wc.loc[:, :K]), pad2(wc.off[:, :K]), pad2(wc.dir[:, :K]),
-            pad2(wc.valid[:, :K]), pad2(wc.weight[:, :K]),
-            pad2(wc.popular), self.params, tier1_only=True,
-        )
-        merged = pipeline.two_phase_merge(
-            self._scoring_didx, t1, dev_b, dev_q, self.params,
-            force_dp=force_dp,
-        )
-        arrays = {
-            k: merged[k]
-            for k in ("len_eff", "clip_before", "clip_after", "escalated",
-                      "body_loc", "indels")
-        }
-        is_alt = merged["cand_loc"] >= self.first_alt_start
-        for j, ci in enumerate(chunk):
-            i = rows[ci]
-            dist = merged["dist"][j]
-            logp = merged["log_prob"][j]
-            ag = merged["ag_score"][j]
-            e = merged["end_loc"][j]
-            cl = merged["cand_loc"][j]
-            dr = merged["direction"][j]
-            v = merged["valid"][j]
-            if self.max_dist_fraction > 0.0:
-                limit = min(
-                    self.params.max_k,
-                    int(len_eff[ci] * self.max_dist_fraction),
+        with RECORDER.span("redo.score", rows=M):
+            pad2 = lambda a: torch.from_numpy(np.concatenate(
+                [a[ridx], np.zeros((Mp - M,) + a.shape[1:], a.dtype)]
+            )).to(self.device)
+            dev_b, dev_q = pad2(sub_b), pad2(sub_q)
+            t1 = pipeline.score_candidates(
+                self._scoring_didx, dev_b, dev_q, pad2(len_eff),
+                pad2(wc.loc[:, :K]), pad2(wc.off[:, :K]), pad2(wc.dir[:, :K]),
+                pad2(wc.valid[:, :K]), pad2(wc.weight[:, :K]),
+                pad2(wc.popular), self.params, tier1_only=True,
+            )
+            merged = pipeline.two_phase_merge(
+                self._scoring_didx, t1, dev_b, dev_q, self.params,
+                force_dp=force_dp,
+            )
+        with RECORDER.span("redo.finalize", rows=M):
+            arrays = {
+                k: merged[k]
+                for k in ("len_eff", "clip_before", "clip_after", "escalated",
+                          "body_loc", "indels")
+            }
+            is_alt = merged["cand_loc"] >= self.first_alt_start
+            for j, ci in enumerate(chunk):
+                i = rows[ci]
+                dist = merged["dist"][j]
+                logp = merged["log_prob"][j]
+                ag = merged["ag_score"][j]
+                e = merged["end_loc"][j]
+                cl = merged["cand_loc"][j]
+                dr = merged["direction"][j]
+                v = merged["valid"][j]
+                if self.max_dist_fraction > 0.0:
+                    limit = min(
+                        self.params.max_k,
+                        int(len_eff[ci] * self.max_dist_fraction),
+                    )
+                    v = v & (dist <= limit)
+                ra, alt_supp = finalize_read(
+                    dist, logp, ag, e, cl, dr, v, int(wc.popular[ci]),
+                    is_alt=is_alt[j],
+                    alt_awareness=self.alt_awareness,
+                    emit_alt=self.emit_alt,
+                    max_score_gap_to_prefer_non_alt=self.max_score_gap,
+                    max_k=self.params.max_k,
+                    extra_search_depth=self.params.extra_search_depth,
+                    use_ukkonen=self.params.use_ukkonen,
+                    lv_dists=merged["lv_dist"][j],
                 )
-                v = v & (dist <= limit)
-            ra, alt_supp = finalize_read(
-                dist, logp, ag, e, cl, dr, v, int(wc.popular[ci]),
-                is_alt=is_alt[j],
-                alt_awareness=self.alt_awareness,
-                emit_alt=self.emit_alt,
-                max_score_gap_to_prefer_non_alt=self.max_score_gap,
-                max_k=self.params.max_k,
-                extra_search_depth=self.params.extra_search_depth,
-                use_ukkonen=self.params.use_ukkonen,
-                lv_dists=merged["lv_dist"][j],
-            )
-            if ra.status == "notfound":
-                results[i] = {"status": "notfound"}
-                continue
-            if self.stop_on_first_hit:
-                ra.mapq = 0
-                ra.status = "multi"
-                alt_supp = None
-            rec = winner_record(
-                self.genome_np, self.params.max_k, batch, i, arrays,
-                ra.cand_index, ra.direction, ra.dist, int(ra.end_loc),
-                arr_i=j, use_m=self.use_m,
-                front_extra=int(front_clips[i]),
-                contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
-            )
-            rec.update(
-                status=ra.status, direction=ra.direction, mapq=ra.mapq,
-                dist=ra.dist,
-            )
-            if alt_supp is not None:
-                srec = winner_record(
+                if ra.status == "notfound":
+                    results[i] = {"status": "notfound"}
+                    continue
+                if self.stop_on_first_hit:
+                    ra.mapq = 0
+                    ra.status = "multi"
+                    alt_supp = None
+                rec = winner_record(
                     self.genome_np, self.params.max_k, batch, i, arrays,
-                    alt_supp.cand_index, alt_supp.direction, alt_supp.dist,
-                    int(alt_supp.end_loc), arr_i=j, use_m=self.use_m,
+                    ra.cand_index, ra.direction, ra.dist, int(ra.end_loc),
+                    arr_i=j, use_m=self.use_m,
                     front_extra=int(front_clips[i]),
                     contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
                 )
-                srec.update(
-                    status=alt_supp.status, direction=alt_supp.direction,
-                    mapq=alt_supp.mapq, dist=alt_supp.dist,
+                rec.update(
+                    status=ra.status, direction=ra.direction, mapq=ra.mapq,
+                    dist=ra.dist,
                 )
-                rec["alt_supplementary"] = srec
-            if self.max_secondary_edit >= 0:
-                secs = collect_secondary_results(
-                    dist, logp, ag, e, cl, dr, v, ra.cand_index, ra.dist,
-                    self.params.max_k, self.max_secondary_edit,
-                    self.max_secondary, is_alt=is_alt[j],
-                    alt_awareness=self.alt_awareness,
-                )
-                sec_recs = []
-                for s in secs:
-                    sr = winner_record(
-                        self.genome_np, self.params.max_k, batch, i,
-                        arrays, s.cand_index, s.direction, s.dist,
-                        int(s.end_loc), arr_i=j, use_m=self.use_m,
+                if alt_supp is not None:
+                    srec = winner_record(
+                        self.genome_np, self.params.max_k, batch, i, arrays,
+                        alt_supp.cand_index, alt_supp.direction, alt_supp.dist,
+                        int(alt_supp.end_loc), arr_i=j, use_m=self.use_m,
                         front_extra=int(front_clips[i]),
                         contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
                     )
-                    sr.update(
-                        status=s.status, direction=s.direction, mapq=0,
-                        dist=s.dist, supplementary=s.supplementary,
+                    srec.update(
+                        status=alt_supp.status, direction=alt_supp.direction,
+                        mapq=alt_supp.mapq, dist=alt_supp.dist,
                     )
-                    sec_recs.append(sr)
-                if sec_recs:
-                    rec["secondaries"] = sec_recs
-            results[i] = rec
+                    rec["alt_supplementary"] = srec
+                if self.max_secondary_edit >= 0:
+                    secs = collect_secondary_results(
+                        dist, logp, ag, e, cl, dr, v, ra.cand_index, ra.dist,
+                        self.params.max_k, self.max_secondary_edit,
+                        self.max_secondary, is_alt=is_alt[j],
+                        alt_awareness=self.alt_awareness,
+                    )
+                    sec_recs = []
+                    for s in secs:
+                        sr = winner_record(
+                            self.genome_np, self.params.max_k, batch, i,
+                            arrays, s.cand_index, s.direction, s.dist,
+                            int(s.end_loc), arr_i=j, use_m=self.use_m,
+                            front_extra=int(front_clips[i]),
+                            contig_bounds=self.contig_bounds,
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
+                        )
+                        sr.update(
+                            status=s.status, direction=s.direction, mapq=0,
+                            dist=s.dist, supplementary=s.supplementary,
+                        )
+                        sec_recs.append(sr)
+                    if sec_recs:
+                        rec["secondaries"] = sec_recs
+                results[i] = rec
 
     def _finalize_fast(
         self, batch: ReadBatch, handles, front_clips, plan_writer=None
@@ -1254,73 +1266,79 @@ class SingleEndAligner:
         from .post import finalize_read
 
         (_, win_dev, out_dev, dev_bases, dev_quals, dev_lens) = handles
-        win = HostWinners(self._fetch_winners(win_dev))
+        packed = self._fetch_winners(win_dev)
+        with RECORDER.span("finalize.unpack"):
+            win = HostWinners(packed)
         if bool(win.dp_overflow):
             # DP tier truncated (extremely gappy batch): redo through the
             # host-gated two-phase path, which sizes the tier exactly
             self.branches["dp_overflow"] += len(batch)
-            if self.mesh is not None:
-                from ..parallel.mesh import align_tier1_sharded
+            with RECORDER.span("redo.dp_overflow", reads=len(batch)):
+                if self.mesh is not None:
+                    from ..parallel.mesh import align_tier1_sharded
 
-                t1 = align_tier1_sharded(
-                    self.index.device_sharded, dev_bases, dev_quals,
-                    dev_lens, self.params, self.mesh,
+                    t1 = align_tier1_sharded(
+                        self.index.device_sharded, dev_bases, dev_quals,
+                        dev_lens, self.params, self.mesh,
+                    )
+                else:
+                    t1 = pipeline.align_tier1(
+                        self.index.device, dev_bases, dev_quals, dev_lens,
+                        self.params,
+                    )
+                return self._finalize(
+                    batch, (t1, dev_bases, dev_quals), front_clips,
+                    plan_writer=plan_writer,
                 )
-            else:
-                t1 = pipeline.align_tier1(
-                    self.index.device, dev_bases, dev_quals, dev_lens,
-                    self.params,
-                )
-            return self._finalize(
-                batch, (t1, dev_bases, dev_quals), front_clips,
-                plan_writer=plan_writer,
-            )
         n = len(batch)
-        self.stats.lv_calls += int(
-            win.valid_count[:n].astype(np.int64).sum()
-        )
-        self.stats.affine_gap_calls += int(
-            win.esc_count[:n].astype(np.int64).sum()
-        )
-        if not self._use_phase_c and n > 0:
-            trunc_frac = float(win.truncated[:n].sum()) / n
-            if trunc_frac > 0.03:
-                self._use_phase_c = True
-
-        fb_rows = np.flatnonzero(np.asarray(win.fallback[:n]))
-        fb = None
-        fb_pos = {}
-        if fb_rows.size:
-            P2 = 1
-            while P2 < fb_rows.size:
-                P2 <<= 1
-            pad_rows = np.zeros(P2, np.int64)
-            pad_rows[: fb_rows.size] = fb_rows
-            from .pipeline import unpack_merged_rows
-
-            fb = unpack_merged_rows(
-                gather_merged_rows(
-                    out_dev, torch.from_numpy(pad_rows).to(self.device)
-                ).cpu().numpy()
+        with RECORDER.span("finalize.unpack"):
+            self.stats.lv_calls += int(
+                win.valid_count[:n].astype(np.int64).sum()
             )
-            fb_pos = {int(r): j for j, r in enumerate(fb_rows)}
-            self.branches["fallback"] += int(fb_rows.size)
+            self.stats.affine_gap_calls += int(
+                win.esc_count[:n].astype(np.int64).sum()
+            )
+            if not self._use_phase_c and n > 0:
+                trunc_frac = float(win.truncated[:n].sum()) / n
+                if trunc_frac > 0.03:
+                    self._use_phase_c = True
 
-        len_eff = np.asarray(win.len_eff).astype(np.int64)
-        arrays = {
-            "len_eff": len_eff,
-            "clip_before": np.array(win.clip_before)[:, None],
-            "clip_after": np.array(win.clip_after)[:, None],
-            "escalated": np.array(win.escalated)[:, None],
-            "body_loc": np.array(win.body_loc).astype(np.int64)[:, None],
-            "indels": np.array(win.indels)[:, None],
-        }
-        found = np.asarray(win.found)
-        mapqs = np.asarray(win.mapq).astype(np.int64)
-        dists = np.asarray(win.dist).astype(np.int64)
-        dirs = np.asarray(win.direction).astype(np.int64)
-        end_locs = np.asarray(win.end_loc).astype(np.int64)
-        popular = np.asarray(win.popular).astype(np.int64)
+            len_eff = np.asarray(win.len_eff).astype(np.int64)
+            arrays = {
+                "len_eff": len_eff,
+                "clip_before": np.array(win.clip_before)[:, None],
+                "clip_after": np.array(win.clip_after)[:, None],
+                "escalated": np.array(win.escalated)[:, None],
+                "body_loc": np.array(win.body_loc).astype(np.int64)[:, None],
+                "indels": np.array(win.indels)[:, None],
+            }
+            found = np.asarray(win.found)
+            mapqs = np.asarray(win.mapq).astype(np.int64)
+            dists = np.asarray(win.dist).astype(np.int64)
+            dirs = np.asarray(win.direction).astype(np.int64)
+            end_locs = np.asarray(win.end_loc).astype(np.int64)
+            popular = np.asarray(win.popular).astype(np.int64)
+
+        with RECORDER.span("finalize.fallback") as sp:
+            fb_rows = np.flatnonzero(np.asarray(win.fallback[:n]))
+            sp.count(rows=int(fb_rows.size))
+            fb = None
+            fb_pos = {}
+            if fb_rows.size:
+                P2 = 1
+                while P2 < fb_rows.size:
+                    P2 <<= 1
+                pad_rows = np.zeros(P2, np.int64)
+                pad_rows[: fb_rows.size] = fb_rows
+                from .pipeline import unpack_merged_rows
+
+                fb = unpack_merged_rows(
+                    gather_merged_rows(
+                        out_dev, torch.from_numpy(pad_rows).to(self.device)
+                    ).cpu().numpy()
+                )
+                fb_pos = {int(r): j for j, r in enumerate(fb_rows)}
+                self.branches["fallback"] += int(fb_rows.size)
 
         # -- edge-indel honesty: gapless dist-2 winners where one
         # 1-base indel explains both mismatches get SNAP's always-LV
@@ -1333,73 +1351,77 @@ class SingleEndAligner:
         # found, gapless, unclipped, single-contig primary alignment is
         # fully determined by the packed winner columns — vectorize it
         # and skip the per-read Python below (the e2e hot path)
-        plan = None
-        simple_mask = None
-        # SAM-input aux passthrough needs per-read variable tags: take
-        # the per-record path for this batch (plan stays None)
-        plan_batch_ok = plan_writer is not None and batch.aux is None
-        if plan_batch_ok:
-            orig = np.asarray(batch.lengths[:n]).astype(np.int64)
-            plen = len_eff[:n]
-            fe = np.asarray(front_clips[:n]).astype(np.int64)
-            back_q = orig - fe - plen
-            start_loc = end_locs[:n] - plen
-            starts, ends = self.contig_bounds
-            ci = np.searchsorted(starts, start_loc, side="right") - 1
-            cis = np.clip(ci, 0, len(starts) - 1)
-            inside = (
-                (ci >= 0)
-                & (start_loc >= starts[cis])
-                & (start_loc + plen <= ends[cis])
-            )
-            simple_mask = (
-                found[:n]
-                & ~np.asarray(win.fallback[:n]).astype(bool)
-                & ~np.asarray(win.truncated[:n]).astype(bool)
-                & (orig >= self.min_read_length)
-                & (np.asarray(win.indels[:n]) == 0)
-                & (np.asarray(win.clip_before[:n]) == 0)
-                & (np.asarray(win.clip_after[:n]) == 0)
-                & (back_q >= 0)
-                & inside
-                & ~edge_mask
-            )
-            if self.params.use_affine_gap:
-                # emission-time AG CIGAR rule (ReadWriter.cpp:231):
-                # dist>=2 rows where a single gap ties/beats the
-                # substitutions leave the vectorized plan and take the
-                # per-read AG traceback in winner_record. Screened on
-                # device (pipeline.winner_flags, the
-                # ag_restructure_possible twin).
-                simple_mask &= ~np.asarray(win.ag_flip[:n]).astype(bool)
-            srows = np.flatnonzero(simple_mask)
-            self.branches["planned"] += int(srows.size)
-            if srows.size:
-                mq = mapqs[srows].astype(np.int32)
-                if self.stop_on_first_hit:
-                    mq = np.zeros_like(mq)
-                d = dirs[srows]
-                plan = {
-                    "mask": simple_mask,
-                    "rows": srows.astype(np.int32),
-                    "flag": (d.astype(np.int32) * 16),
-                    "rname_id": cis[srows].astype(np.int32),
-                    "pos": (
-                        start_loc[srows] - starts[cis[srows]] + 1
-                    ).astype(np.int64),
-                    "mapq": mq,
-                    "fs": np.where(
-                        d == 1, back_q[srows], fe[srows]
-                    ).astype(np.int32),
-                    "mlen": plen[srows].astype(np.int32),
-                    "bs": np.where(
-                        d == 1, fe[srows], back_q[srows]
-                    ).astype(np.int32),
-                    "nm": dists[srows].astype(np.int32),
-                    "rlen": orig[srows].astype(np.int32),
-                }
-            else:
-                simple_mask = None
+        with RECORDER.span("finalize.plan") as sp:
+            n_planned = 0
+            plan = None
+            simple_mask = None
+            # SAM-input aux passthrough needs per-read variable tags: take
+            # the per-record path for this batch (plan stays None)
+            plan_batch_ok = plan_writer is not None and batch.aux is None
+            if plan_batch_ok:
+                orig = np.asarray(batch.lengths[:n]).astype(np.int64)
+                plen = len_eff[:n]
+                fe = np.asarray(front_clips[:n]).astype(np.int64)
+                back_q = orig - fe - plen
+                start_loc = end_locs[:n] - plen
+                starts, ends = self.contig_bounds
+                ci = np.searchsorted(starts, start_loc, side="right") - 1
+                cis = np.clip(ci, 0, len(starts) - 1)
+                inside = (
+                    (ci >= 0)
+                    & (start_loc >= starts[cis])
+                    & (start_loc + plen <= ends[cis])
+                )
+                simple_mask = (
+                    found[:n]
+                    & ~np.asarray(win.fallback[:n]).astype(bool)
+                    & ~np.asarray(win.truncated[:n]).astype(bool)
+                    & (orig >= self.min_read_length)
+                    & (np.asarray(win.indels[:n]) == 0)
+                    & (np.asarray(win.clip_before[:n]) == 0)
+                    & (np.asarray(win.clip_after[:n]) == 0)
+                    & (back_q >= 0)
+                    & inside
+                    & ~edge_mask
+                )
+                if self.params.use_affine_gap:
+                    # emission-time AG CIGAR rule (ReadWriter.cpp:231):
+                    # dist>=2 rows where a single gap ties/beats the
+                    # substitutions leave the vectorized plan and take the
+                    # per-read AG traceback in winner_record. Screened on
+                    # device (pipeline.winner_flags, the
+                    # ag_restructure_possible twin).
+                    simple_mask &= ~np.asarray(win.ag_flip[:n]).astype(bool)
+                srows = np.flatnonzero(simple_mask)
+                n_planned = int(srows.size)
+                sp.count(rows=n_planned)
+                self.branches["planned"] += n_planned
+                if srows.size:
+                    mq = mapqs[srows].astype(np.int32)
+                    if self.stop_on_first_hit:
+                        mq = np.zeros_like(mq)
+                    d = dirs[srows]
+                    plan = {
+                        "mask": simple_mask,
+                        "rows": srows.astype(np.int32),
+                        "flag": (d.astype(np.int32) * 16),
+                        "rname_id": cis[srows].astype(np.int32),
+                        "pos": (
+                            start_loc[srows] - starts[cis[srows]] + 1
+                        ).astype(np.int64),
+                        "mapq": mq,
+                        "fs": np.where(
+                            d == 1, back_q[srows], fe[srows]
+                        ).astype(np.int32),
+                        "mlen": plen[srows].astype(np.int32),
+                        "bs": np.where(
+                            d == 1, fe[srows], back_q[srows]
+                        ).astype(np.int32),
+                        "nm": dists[srows].astype(np.int32),
+                        "rlen": orig[srows].astype(np.int32),
+                    }
+                else:
+                    simple_mask = None
 
         # -- batched AG CIGARs for escalated winners AND device-flagged
         # gapless restructure rows (win.ag_flip): one LV start-recovery
@@ -1407,151 +1429,154 @@ class SingleEndAligner:
         # pipeline (the emission hot path for the ~4% of reads whose
         # alignment needed gaps or a restructured CIGAR)
         ag_cache: dict[int, tuple | None] = {}
-        esc_flags = np.asarray(win.escalated[:n]).astype(bool)
-        flip_flags = np.asarray(win.ag_flip[:n]).astype(bool)
-        flag_known = (
-            ~np.asarray(win.fallback[:n]).astype(bool)
-            & ~np.asarray(win.truncated[:n]).astype(bool)
-        )
-        if self.params.use_affine_gap:
-            ag_base = (
-                found[:n]
-                & flag_known
-                & ~edge_mask
-                & (np.asarray(batch.lengths[:n]) >= self.min_read_length)
-                & (dists[:n] > 0)
+        with RECORDER.span("finalize.ag_batch") as sp:
+            esc_flags = np.asarray(win.escalated[:n]).astype(bool)
+            flip_flags = np.asarray(win.ag_flip[:n]).astype(bool)
+            flag_known = (
+                ~np.asarray(win.fallback[:n]).astype(bool)
+                & ~np.asarray(win.truncated[:n]).astype(bool)
             )
-            ag_rows = np.flatnonzero(ag_base & (esc_flags | flip_flags))
-            ag_rows = [i for i in ag_rows if i not in fb_pos]
-            if ag_rows:
-                self.branches["ag_batch_escalated"] += int(esc_flags[ag_rows].sum())
-                self.branches["ag_batch_flip"] += int(
-                    (flip_flags[ag_rows] & ~esc_flags[ag_rows]).sum()
+            if self.params.use_affine_gap:
+                ag_base = (
+                    found[:n]
+                    & flag_known
+                    & ~edge_mask
+                    & (np.asarray(batch.lengths[:n]) >= self.min_read_length)
+                    & (dists[:n] > 0)
                 )
-                from .agcigar import compute_ag_cigar_batch
-                from .cigar import recover_starts_batch
-
-                bodies, bquals_l, fcs, bcs, mgs = [], [], [], [], []
-                lv_pats, lv_sub = [], []  # start recovery for flip rows
-                locs_arr = np.empty(len(ag_rows), np.int64)
-                for t, i in enumerate(ag_rows):
-                    plen_i = int(len_eff[i])
-                    fe_i = int(front_clips[i])
-                    back_q_i = int(batch.lengths[i]) - fe_i - plen_i
-                    clipped = batch.bases[i, fe_i : fe_i + plen_i]
-                    cq = batch.quals[i, fe_i : fe_i + plen_i]
-                    if dirs[i]:
-                        pat = reverse_complement_codes(clipped.copy())
-                        oq = cq[::-1].copy()
-                        f0, b0 = back_q_i, fe_i
-                    else:
-                        pat, oq = clipped, cq
-                        f0, b0 = fe_i, back_q_i
-                    cb = int(arrays["clip_before"][i, 0])
-                    ca = int(arrays["clip_after"][i, 0])
-                    bodies.append(pat[cb : plen_i - ca])
-                    bquals_l.append(oq[cb : plen_i - ca])
-                    if esc_flags[i]:
-                        locs_arr[t] = int(arrays["body_loc"][i, 0])
-                    else:
-                        # flip row: recover the LV alignment start in
-                        # the batched sweep below (winner_record's
-                        # non-escalated branch, done once for all rows)
-                        lv_pats.append(bodies[-1])
-                        lv_sub.append(t)
-                    fcs.append(f0 + cb)
-                    bcs.append(b0 + ca)
-                    mgs.append(
-                        min(MAX_K_TRACEBACK, max(8, 2 * int(dists[i]) + 8))
+                ag_rows = np.flatnonzero(ag_base & (esc_flags | flip_flags))
+                ag_rows = [i for i in ag_rows if i not in fb_pos]
+                sp.count(rows=len(ag_rows))
+                if ag_rows:
+                    self.branches["ag_batch_escalated"] += int(esc_flags[ag_rows].sum())
+                    self.branches["ag_batch_flip"] += int(
+                        (flip_flags[ag_rows] & ~esc_flags[ag_rows]).sum()
                     )
-                if lv_sub:
-                    sub = np.asarray(lv_sub)
-                    rws = np.asarray(ag_rows)[sub]
-                    locs_arr[sub] = recover_starts_batch(
-                        lv_pats, self.genome_np, end_locs[rws],
-                        np.minimum(
-                            self.params.max_k, dists[rws] + 2
+                    from .agcigar import compute_ag_cigar_batch
+                    from .cigar import recover_starts_batch
+
+                    bodies, bquals_l, fcs, bcs, mgs = [], [], [], [], []
+                    lv_pats, lv_sub = [], []  # start recovery for flip rows
+                    locs_arr = np.empty(len(ag_rows), np.int64)
+                    for t, i in enumerate(ag_rows):
+                        plen_i = int(len_eff[i])
+                        fe_i = int(front_clips[i])
+                        back_q_i = int(batch.lengths[i]) - fe_i - plen_i
+                        clipped = batch.bases[i, fe_i : fe_i + plen_i]
+                        cq = batch.quals[i, fe_i : fe_i + plen_i]
+                        if dirs[i]:
+                            pat = reverse_complement_codes(clipped.copy())
+                            oq = cq[::-1].copy()
+                            f0, b0 = back_q_i, fe_i
+                        else:
+                            pat, oq = clipped, cq
+                            f0, b0 = fe_i, back_q_i
+                        cb = int(arrays["clip_before"][i, 0])
+                        ca = int(arrays["clip_after"][i, 0])
+                        bodies.append(pat[cb : plen_i - ca])
+                        bquals_l.append(oq[cb : plen_i - ca])
+                        if esc_flags[i]:
+                            locs_arr[t] = int(arrays["body_loc"][i, 0])
+                        else:
+                            # flip row: recover the LV alignment start in
+                            # the batched sweep below (winner_record's
+                            # non-escalated branch, done once for all rows)
+                            lv_pats.append(bodies[-1])
+                            lv_sub.append(t)
+                        fcs.append(f0 + cb)
+                        bcs.append(b0 + ca)
+                        mgs.append(
+                            min(MAX_K_TRACEBACK, max(8, 2 * int(dists[i]) + 8))
+                        )
+                    if lv_sub:
+                        sub = np.asarray(lv_sub)
+                        rws = np.asarray(ag_rows)[sub]
+                        locs_arr[sub] = recover_starts_batch(
+                            lv_pats, self.genome_np, end_locs[rws],
+                            np.minimum(
+                                self.params.max_k, dists[rws] + 2
+                            ),
+                        )
+                    res_b = compute_ag_cigar_batch(
+                        self.genome_np, bodies, bquals_l, locs_arr,
+                        np.asarray(fcs, np.int32), np.asarray(bcs, np.int32),
+                        np.asarray(mgs, np.int32), use_m=self.use_m,
+                    )
+                    for i, r in zip(ag_rows, res_b):
+                        ag_cache[int(i)] = r
+
+        with RECORDER.span("finalize.per_read", rows=n - n_planned):
+            results = []
+            for i in range(n):
+                if simple_mask is not None and simple_mask[i]:
+                    results.append(_PLANNED)
+                    continue
+                orig_len = int(batch.lengths[i])
+                if orig_len < self.min_read_length:
+                    results.append({"status": "filtered"})
+                    continue
+                arr_i, k = i, 0
+                if i in fb_pos:
+                    j = fb_pos[i]
+                    ra, _ = finalize_read(
+                        fb["dist"][j], fb["log_prob"][j], fb["ag_score"][j],
+                        fb["end_loc"][j], fb["cand_loc"][j], fb["direction"][j],
+                        fb["valid"][j], int(popular[i]),
+                        is_alt=(
+                            fb["cand_loc"][j] >= self.first_alt_start
                         ),
+                        alt_awareness=self.alt_awareness,
+                        max_score_gap_to_prefer_non_alt=self.max_score_gap,
+                        max_k=self.params.max_k,
+                        extra_search_depth=self.params.extra_search_depth,
+                        use_ukkonen=self.params.use_ukkonen,
+                        lv_dists=np.asarray(fb["lv_dist"][j]),
                     )
-                res_b = compute_ag_cigar_batch(
-                    self.genome_np, bodies, bquals_l, locs_arr,
-                    np.asarray(fcs, np.int32), np.asarray(bcs, np.int32),
-                    np.asarray(mgs, np.int32), use_m=self.use_m,
-                )
-                for i, r in zip(ag_rows, res_b):
-                    ag_cache[int(i)] = r
-
-        results = []
-        for i in range(n):
-            if simple_mask is not None and simple_mask[i]:
-                results.append(_PLANNED)
-                continue
-            orig_len = int(batch.lengths[i])
-            if orig_len < self.min_read_length:
-                results.append({"status": "filtered"})
-                continue
-            arr_i, k = i, 0
-            if i in fb_pos:
-                j = fb_pos[i]
-                ra, _ = finalize_read(
-                    fb["dist"][j], fb["log_prob"][j], fb["ag_score"][j],
-                    fb["end_loc"][j], fb["cand_loc"][j], fb["direction"][j],
-                    fb["valid"][j], int(popular[i]),
-                    is_alt=(
-                        fb["cand_loc"][j] >= self.first_alt_start
+                    if ra.status == "notfound":
+                        results.append({"status": "notfound"})
+                        continue
+                    # rebuild the winner-row view from the exact result
+                    kk = ra.cand_index
+                    arrays["clip_before"][i, 0] = fb["clip_before"][j, kk]
+                    arrays["clip_after"][i, 0] = fb["clip_after"][j, kk]
+                    arrays["escalated"][i, 0] = fb["escalated"][j, kk]
+                    arrays["body_loc"][i, 0] = fb["body_loc"][j, kk]
+                    arrays["indels"][i, 0] = fb["indels"][j, kk]
+                    status, mapq, direction = ra.status, ra.mapq, ra.direction
+                    dist, end_loc = ra.dist, int(ra.end_loc)
+                else:
+                    if not found[i]:
+                        results.append({"status": "notfound"})
+                        continue
+                    mapq = int(mapqs[i])
+                    status = "single" if mapq >= 10 else "multi"
+                    direction = int(dirs[i])
+                    dist = int(dists[i])
+                    end_loc = int(end_locs[i])
+                if self.stop_on_first_hit:
+                    mapq, status = 0, "multi"
+                self.branches["per_read"] += 1
+                rec = winner_record(
+                    self.genome_np, self.params.max_k, batch, i, arrays,
+                    k, direction, dist, end_loc, arr_i=arr_i,
+                    use_m=self.use_m, front_extra=int(front_clips[i]),
+                    contig_bounds=self.contig_bounds,
+                    use_affine_gap=self.params.use_affine_gap,
+                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
+                                  self.params.ag_open, self.params.ag_extend),
+                    precomputed_ag=ag_cache.get(i, _AG_NOT_CACHED),
+                    # device-screened restructure flag (winner_flags);
+                    # unknown (None -> row screen) for fallback-redone rows
+                    ag_restructure=(
+                        bool(flip_flags[i])
+                        if flag_known[i] and i not in fb_pos
+                        else None
                     ),
-                    alt_awareness=self.alt_awareness,
-                    max_score_gap_to_prefer_non_alt=self.max_score_gap,
-                    max_k=self.params.max_k,
-                    extra_search_depth=self.params.extra_search_depth,
-                    use_ukkonen=self.params.use_ukkonen,
-                    lv_dists=np.asarray(fb["lv_dist"][j]),
                 )
-                if ra.status == "notfound":
-                    results.append({"status": "notfound"})
-                    continue
-                # rebuild the winner-row view from the exact result
-                kk = ra.cand_index
-                arrays["clip_before"][i, 0] = fb["clip_before"][j, kk]
-                arrays["clip_after"][i, 0] = fb["clip_after"][j, kk]
-                arrays["escalated"][i, 0] = fb["escalated"][j, kk]
-                arrays["body_loc"][i, 0] = fb["body_loc"][j, kk]
-                arrays["indels"][i, 0] = fb["indels"][j, kk]
-                status, mapq, direction = ra.status, ra.mapq, ra.direction
-                dist, end_loc = ra.dist, int(ra.end_loc)
-            else:
-                if not found[i]:
-                    results.append({"status": "notfound"})
-                    continue
-                mapq = int(mapqs[i])
-                status = "single" if mapq >= 10 else "multi"
-                direction = int(dirs[i])
-                dist = int(dists[i])
-                end_loc = int(end_locs[i])
-            if self.stop_on_first_hit:
-                mapq, status = 0, "multi"
-            self.branches["per_read"] += 1
-            rec = winner_record(
-                self.genome_np, self.params.max_k, batch, i, arrays,
-                k, direction, dist, end_loc, arr_i=arr_i,
-                use_m=self.use_m, front_extra=int(front_clips[i]),
-                contig_bounds=self.contig_bounds,
-                use_affine_gap=self.params.use_affine_gap,
-                ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                              self.params.ag_open, self.params.ag_extend),
-                precomputed_ag=ag_cache.get(i, _AG_NOT_CACHED),
-                # device-screened restructure flag (winner_flags);
-                # unknown (None -> row screen) for fallback-redone rows
-                ag_restructure=(
-                    bool(flip_flags[i])
-                    if flag_known[i] and i not in fb_pos
-                    else None
-                ),
-            )
-            rec.update(
-                status=status, direction=direction, mapq=mapq, dist=dist,
-            )
-            results.append(rec)
+                rec.update(
+                    status=status, direction=direction, mapq=mapq, dist=dist,
+                )
+                results.append(rec)
         self._redo_wide(
             batch, results,
             np.flatnonzero(np.asarray(win.truncated[:n])),
@@ -1618,29 +1643,38 @@ class SingleEndAligner:
             yield batch
 
     def _align_file_loop(self, batches, writer, plan_ok, progress):
+        """The stages tile the loop, each a span with its batch number:
+        single.read_wait, single.submit, single.finalize, single.emit;
+        their seconds are AlignerStats' reading, aligning and writing."""
         pending = None
+        n_read = 0  # the number of the batch read next
         while True:
-            tr = time.time()
-            batch = next(batches, None)
-            self.stats.seconds_reading += time.time() - tr
+            with RECORDER.timed("single.read_wait", batch=n_read) as sp:
+                batch = next(batches, None)
+            self.stats.seconds_reading += sp.seconds
             if batch is not None:
-                ta = time.time()
-                sub = (batch, *self._submit(batch))
-                self.stats.seconds_aligning += time.time() - ta
+                with RECORDER.timed(
+                    "single.submit", batch=n_read, reads=len(batch)
+                ) as sp:
+                    sub = (n_read, batch, *self._submit(batch))
+                self.stats.seconds_aligning += sp.seconds
+                n_read += 1
             else:
                 sub = None
             if pending is not None:
-                pbatch, pout, pfc = pending
+                k, pbatch, pout, pfc = pending
                 self.branches["batches"] += 1
-                ta = time.time()
-                pw = writer if plan_ok else None
-                if pw is not None:
-                    results, plan = self._finalize(
-                        pbatch, pout, pfc, plan_writer=pw
-                    )
-                else:
-                    results, plan = self._finalize(pbatch, pout, pfc), None
-                dt = time.time() - ta
+                with RECORDER.timed(
+                    "single.finalize", batch=k, reads=len(pbatch)
+                ) as sp:
+                    pw = writer if plan_ok else None
+                    if pw is not None:
+                        results, plan = self._finalize(
+                            pbatch, pout, pfc, plan_writer=pw
+                        )
+                    else:
+                        results, plan = self._finalize(pbatch, pout, pfc), None
+                dt = sp.seconds
                 self.stats.seconds_aligning += dt
                 if self.attach_times:
                     # -at: batched alignment has no per-read clock; tag
@@ -1648,13 +1682,17 @@ class SingleEndAligner:
                     self._batch_us_per_read = int(
                         dt * 1e6 / max(len(pbatch), 1)
                     )
-                tw = time.time()
-                if plan is not None:
-                    self._emit_planned(writer, pbatch, results, plan)
-                else:
-                    for i, res in enumerate(results):
-                        self._emit(writer, pbatch, i, res)
-                self.stats.seconds_writing += time.time() - tw
+                planned = 0 if plan is None else len(plan["rows"])
+                with RECORDER.timed(
+                    "single.emit", batch=k, reads=len(pbatch), planned=planned
+                ) as sp:
+                    if plan is not None:
+                        self._emit_planned(writer, pbatch, results, plan)
+                    else:
+                        with RECORDER.span("emit.per_read", rows=len(results)):
+                            for i, res in enumerate(results):
+                                self._emit(writer, pbatch, i, res)
+                self.stats.seconds_writing += sp.seconds
                 progress.update(len(pbatch))
                 if self.kill_if_too_slow:
                     # -kts watchdog (ReadWriter.cpp:144-165): fewer than
@@ -1688,26 +1726,29 @@ class SingleEndAligner:
         order is exactly the input read order."""
         from ..io import native as _native
 
-        ids = batch.ids
-        qname_off = np.zeros(len(ids) + 1, dtype=np.int64)
-        np.cumsum([len(x) for x in ids], out=qname_off[1:])
-        qname_buf = b"".join(ids)
-        names = self._sorted_contig_names
-        rname_off = np.zeros(len(names) + 1, dtype=np.int64)
-        np.cumsum([len(x) for x in names], out=rname_off[1:])
-        rname_buf = b"".join(names)
-        tag_pg = f"PG:Z:{writer.program_id}".encode()
-        rg = [f"RG:Z:{writer.read_group.rg_id}"] + [
-            f"{k}:Z:{v}" for k, v in writer.read_group.attrs
-        ]
-        tag_tail = ("\t" + "\t".join(rg)).encode()
-        formatted = _native.format_sam_simple(
-            batch.bases, batch.quals, qname_buf, qname_off,
-            rname_buf, rname_off, plan["rows"], plan["flag"],
-            plan["rname_id"], plan["pos"], plan["mapq"], plan["fs"],
-            plan["mlen"], plan["bs"], plan["nm"], plan["rlen"],
-            tag_pg, tag_tail,
-        )
+        with RECORDER.span("emit.format") as sp:
+            ids = batch.ids
+            qname_off = np.zeros(len(ids) + 1, dtype=np.int64)
+            np.cumsum([len(x) for x in ids], out=qname_off[1:])
+            qname_buf = b"".join(ids)
+            names = self._sorted_contig_names
+            rname_off = np.zeros(len(names) + 1, dtype=np.int64)
+            np.cumsum([len(x) for x in names], out=rname_off[1:])
+            rname_buf = b"".join(names)
+            tag_pg = f"PG:Z:{writer.program_id}".encode()
+            rg = [f"RG:Z:{writer.read_group.rg_id}"] + [
+                f"{k}:Z:{v}" for k, v in writer.read_group.attrs
+            ]
+            tag_tail = ("\t" + "\t".join(rg)).encode()
+            formatted = _native.format_sam_simple(
+                batch.bases, batch.quals, qname_buf, qname_off,
+                rname_buf, rname_off, plan["rows"], plan["flag"],
+                plan["rname_id"], plan["pos"], plan["mapq"], plan["fs"],
+                plan["mlen"], plan["bs"], plan["nm"], plan["rlen"],
+                tag_pg, tag_tail,
+            )
+            if formatted is not None:
+                sp.count(bytes=len(formatted[0]))
         if formatted is None:  # native library vanished mid-run
             for i, res in enumerate(results):
                 if res is _PLANNED:
@@ -1730,16 +1771,19 @@ class SingleEndAligner:
         out = writer.out
         complex_rows = np.flatnonzero(~plan["mask"])
         k = 0  # planned records already flushed
-        for i in complex_rows:
-            j = int(np.searchsorted(srows, i))
-            if j > k:
-                a = 0 if k == 0 else int(rec_end[k - 1])
-                out.write(blob[a : int(rec_end[j - 1])])
-                k = j
-            self._emit(writer, batch, int(i), results[int(i)])
+        with RECORDER.span("emit.per_read", rows=len(complex_rows)):
+            for i in complex_rows:
+                j = int(np.searchsorted(srows, i))
+                if j > k:
+                    a = 0 if k == 0 else int(rec_end[k - 1])
+                    with RECORDER.span("emit.write"):
+                        out.write(blob[a : int(rec_end[j - 1])])
+                    k = j
+                self._emit(writer, batch, int(i), results[int(i)])
         if k < ns:
             a = 0 if k == 0 else int(rec_end[k - 1])
-            out.write(blob[a:])
+            with RECORDER.span("emit.write"):
+                out.write(blob[a:])
 
     def _emit(self, writer: SamWriter, batch: ReadBatch, i: int, res: dict):
         from ..constants import BASE_DECODE

@@ -31,6 +31,7 @@ from .align.single import SingleEndAligner
 from .constants import DEFAULT_SEED_LEN
 from .genome import load_fasta
 from .index.index import GenomeIndex
+from .stats import RECORDER
 
 
 def cmd_index(args: list[str], device=None) -> int:
@@ -669,12 +670,14 @@ def _run_with_writer(index, command_line: str, opts: dict, run, aligner) -> int:
         prof = None
         if trace_dir:
             # -trace: a torch.profiler trace of the align loop (host ops
-            # and, on the card, its kernels), written as a Chrome trace
+            # and, on the card, its kernels), written as a Chrome trace,
+            # with a range for each of the loops' stage spans
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU]
             if index.torch_device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
+            RECORDER.ranges = True
             prof = profile(activities=acts)
             prof.__enter__()
         try:
@@ -682,6 +685,9 @@ def _run_with_writer(index, command_line: str, opts: dict, run, aligner) -> int:
         finally:
             if prof is not None:
                 prof.__exit__(None, None, None)
+                RECORDER.ranges = False
+                if not RECORDER.on:  # nobody else reads what it recorded
+                    RECORDER.drain()
                 os.makedirs(trace_dir, exist_ok=True)
                 path = os.path.join(trace_dir, "trace.json")
                 prof.export_chrome_trace(path)

@@ -20,6 +20,8 @@ from __future__ import annotations
 import queue
 import threading
 
+from ..stats import RECORDER
+
 
 class BufferedAsyncWriter:
     """File-like append sink whose physical writes happen on a worker
@@ -60,8 +62,11 @@ class BufferedAsyncWriter:
         self._raise_pending()
         self._buf += data
         if len(self._buf) >= self.buffer_size:
-            self._q.put(bytes(self._buf))
+            chunk = bytes(self._buf)
             self._buf.clear()
+            # blocks while `depth` full buffers are in flight
+            with RECORDER.span("write.queue_wait", bytes=len(chunk)):
+                self._q.put(chunk)
         return len(data)
 
     def flush(self) -> None:

@@ -6,14 +6,20 @@ Aligned MAPQ>=10 / MAPQ<10, Unaligned, Too Short/Too Many Ns, optional
 Filtered and Extra Alignments columns, %Pairs for paired runs, Reads/s,
 Time in Aligner, and optional -pro %Read/%Align/%Write columns; the -pf
 perf-file rows mirror AlignerContext.cpp:554-573.
+
+Also the stage spans of the align loops (`RECORDER`), whose durations
+are AlignerStats' seconds.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch.autograd.profiler as _torch_profiler
 
 
 def _commas(n: int) -> str:
@@ -176,6 +182,136 @@ class AlignerStats:
                 f"{100.0 * self.aligned_as_pairs / total:0.2f}%\t"
                 f"{_commas(self.total)}\t{_commas(int(rs))}\n\n"
             )
+
+
+class Span:
+    """One stage of an align loop; a `with` block. Its clock pair always
+    runs (`seconds` after the block); it is recorded when its recorder
+    was on as it began."""
+
+    __slots__ = ("_rec", "name", "batch", "counts", "parent", "start_ns",
+                 "end_ns", "_kept", "_range")
+
+    def __init__(self, rec: "Recorder", name: str, batch, counts: dict):
+        self._rec, self.name, self.batch, self.counts = rec, name, batch, counts
+        self.parent = self._range = None
+        self.start_ns = self.end_ns = 0
+
+    def count(self, **counts) -> None:
+        """Set work counts known only inside the block."""
+        self.counts.update(counts)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def __enter__(self) -> "Span":
+        rec = self._rec
+        self._kept = rec.on
+        if self._kept:
+            stack = rec._stack()
+            if stack:
+                self.parent = stack[-1].name
+                if self.batch is None:
+                    self.batch = stack[-1].batch
+            stack.append(self)
+            if rec.ranges:
+                self._range = _torch_profiler.record_function(self.name)
+                self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        if self._kept:
+            rec = self._rec
+            if self._range is not None:
+                self._range.__exit__(None, None, None)
+            rec._stack().pop()
+            rec._spans.append((self.name, self.start_ns, self.end_ns,
+                               self.parent, self.batch, self.counts))
+        return False
+
+
+class _Off:
+    """The span of a recorder that is off: no clock read, nothing kept."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class Recorder:
+    """Stage spans on the Unix clock in nanoseconds (time.time_ns, the
+    clock torch.profiler puts its device events on). A recorded span is
+    (name, start_ns, end_ns, parent, batch, counts): the name of the span
+    open on the same thread as it began (None at the top), the align
+    loop's batch number (given, else the parent's), and the work counts
+    at that boundary. Spans stay in memory until drain().
+
+    The recorder is on while enable()d and while a torch.profiler session
+    collects in this process (the benchmark's traced window starts one),
+    so any profiled run of the align loops records its spans; read them
+    with drain(). With `ranges` set (the CLI's -trace) each span also
+    opens a torch.profiler record_function range, so the stages sit
+    beside the kernels in the profiler's trace."""
+
+    def __init__(self):
+        self.enabled = False
+        self.ranges = False
+        self._spans: list[tuple] = []
+        self._local = threading.local()
+
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    @property
+    def on(self) -> bool:
+        # torch keeps this flag private: a torch without it records only
+        # while enable()d
+        return self.enabled or getattr(_torch_profiler, "_is_profiler_enabled", False)
+
+    def drain(self) -> list[tuple]:
+        """The recorded spans, in the order they ended; empties the list."""
+        spans, self._spans = self._spans, []
+        return spans
+
+    def spans(self) -> list[tuple]:
+        """The recorded spans so far, left in place."""
+        return list(self._spans)
+
+    def _stack(self) -> list[Span]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def span(self, name: str, /, batch=None, **counts):
+        """An inner stage: recorded when on, else the shared no-op span."""
+        if not self.on:
+            return _OFF
+        return Span(self, name, batch, counts)
+
+    def timed(self, name: str, /, batch=None, **counts) -> Span:
+        """A loop-level stage, whose seconds feed AlignerStats: timed
+        whether the recorder is on or not, recorded when on."""
+        return Span(self, name, batch, counts)
+
+
+RECORDER = Recorder()
 
 
 class ProgressReporter:
