@@ -309,6 +309,163 @@ def finalize_batch(
     return results
 
 
+def finalize_exact_batch(
+    dists: np.ndarray,        # [M, K]
+    log_probs: np.ndarray,
+    ag_scores: np.ndarray,
+    end_locs: np.ndarray,
+    cand_locs: np.ndarray,
+    directions: np.ndarray,
+    valid: np.ndarray,
+    popular: np.ndarray,      # [M]
+    use_affine_gap: bool = True,
+    is_alt: np.ndarray | None = None,
+    alt_awareness: bool = True,
+    max_score_gap_to_prefer_non_alt: int = 64,
+    max_k: int = 127,
+    extra_search_depth: int = 1,
+    lv_dists: np.ndarray | None = None,
+    use_ukkonen: bool = True,
+) -> tuple[list[ReadAlignment], np.ndarray]:
+    """finalize_read(..., emit_alt=False) over M rows at once, exactly.
+
+    Every field of every row equals finalize_read's, match_prob and
+    prob_all bit for bit (finalize_batch sums pAll with a bincount and
+    falls back to finalize_read on rows needing the adjacent-element
+    merge; this twin does neither):
+    - one stable sort of the valid slots by (row, direction, bin, dist,
+      -probability, cand_loc) lists the clusters in finalize_read's
+      order, each led by its rep (lower dist, higher probability, then
+      earlier in cluster order);
+    - the adjacent-element merge finds its near pairs vectorized and
+      walks only those, in order, so a loser drops out of the chain
+      exactly as in finalize_read's keep[] loop;
+    - the Ukkonen replay runs once over [M, K];
+    - pAll is np.sum over one contiguous float64 array of a row's
+      surviving reps in cluster order, as finalize_read's pick sums it,
+      and MAPQ is the scalar compute_mapq.
+
+    Returns (alignments aligned with rows, [M] bool rows in which the
+    adjacent-element merge fired).
+    """
+    M, K = dists.shape
+    flat = np.flatnonzero(np.asarray(valid, dtype=bool).reshape(-1))
+    row = flat // K
+    slot = flat % K
+    d = dists.reshape(-1)[flat].astype(np.int64)
+    probs = np.exp(log_probs.reshape(-1)[flat].astype(np.float64))
+    ag = ag_scores.reshape(-1)[flat].astype(np.int64)
+    e = end_locs.reshape(-1)[flat].astype(np.int64)
+    cl = cand_locs.reshape(-1)[flat].astype(np.int64)
+    dr = directions.reshape(-1)[flat].astype(np.int64)
+    alt_orig = (
+        is_alt.astype(bool) if is_alt is not None
+        else np.zeros((M, K), dtype=bool)
+    )
+    alt = alt_orig.reshape(-1)[flat]
+    bins = cl // MAX_MERGE_DIST
+
+    # clusters in finalize_read's order; within a cluster the rep sorts
+    # first by (dist, -prob), ties kept in cluster order (cand_loc, slot)
+    order = np.lexsort((cl, -probs, d, bins, dr, row))
+    ro, bo, dro = row[order], bins[order], dr[order]
+    first = np.ones(order.size, dtype=bool)
+    first[1:] = (
+        (ro[1:] != ro[:-1]) | (dro[1:] != dro[:-1]) | (bo[1:] != bo[:-1])
+    )
+    reps = order[first]  # one per cluster, in cluster order
+
+    # adjacent-element merge (finalize_read's keep[] loop): consecutive
+    # reps of a row and direction within 48 bp, the better score < 2
+    near_rows = np.zeros(M, dtype=bool)
+    keep = np.ones(reps.size, dtype=bool)
+    if reps.size > 1:
+        a, b = reps[:-1], reps[1:]
+        near = (
+            (row[a] == row[b]) & (dr[a] == dr[b])
+            & (np.abs(cl[b] - cl[a]) <= MAX_MERGE_DIST)
+            & (np.minimum(d[a], d[b]) < 2)
+        )
+        pairs = np.flatnonzero(near)
+        if pairs.size:
+            near_rows[row[a[pairs]]] = True
+            # (d[j], -p[j]) < (d[i], -p[i]): the later rep wins
+            later = (d[b] < d[a]) | ((d[b] == d[a]) & (-probs[b] < -probs[a]))
+            for p, w in zip(pairs.tolist(), later[pairs].tolist()):
+                if keep[p]:
+                    keep[p if w else p + 1] = False
+    reps = reps[keep]
+
+    if use_ukkonen:
+        rep_mask = np.zeros((M, K), dtype=bool)
+        rep_mask[row[reps], slot[reps]] = True
+        inc = ukkonen_included(
+            rep_mask, dists.astype(np.int64), alt_orig, max_k,
+            extra_search_depth, max_score_gap_to_prefer_non_alt,
+            lv=lv_dists.astype(np.int64) if lv_dists is not None else None,
+        )
+        reps = reps[inc[row[reps], slot[reps]]]
+
+    # per-row best in the order finalize_read's pick uses; reps stay in
+    # cluster order, so the stable sort breaks full ties the same way
+    def best_of(sel: np.ndarray) -> np.ndarray:
+        if use_affine_gap:
+            o = np.lexsort((e[sel], -probs[sel], -ag[sel], row[sel]))
+        else:
+            o = np.lexsort((e[sel], -probs[sel], d[sel], row[sel]))
+        s = sel[o]
+        f = np.ones(s.size, dtype=bool)
+        f[1:] = row[s][1:] != row[s][:-1]
+        out = np.full(M, -1, dtype=np.int64)
+        out[row[s[f]]] = s[f]
+        return out
+
+    def bounds(sel: np.ndarray) -> np.ndarray:
+        return np.searchsorted(row[sel], np.arange(M + 1))
+
+    best_all = best_of(reps)
+    p_reps = probs[reps]  # contiguous, rows in cluster order
+    cut = bounds(reps)
+    use_alt_sets = alt_awareness and bool(alt[reps].any())
+    if use_alt_sets:
+        na = reps[~alt[reps]]
+        best_na = best_of(na)
+        p_na = probs[na]
+        cut_na = bounds(na)
+        row_has_alt = np.zeros(M, dtype=bool)
+        row_has_alt[row[reps[alt[reps]]]] = True
+
+    out: list[ReadAlignment] = []
+    for i in range(M):
+        r = int(best_all[i])
+        if r < 0:
+            out.append(ReadAlignment(status="notfound"))
+            continue
+        p_all = float(np.sum(p_reps[cut[i]:cut[i + 1]]))
+        if use_alt_sets and row_has_alt[i]:
+            # finalize_read's two score sets: the non-ALT best unless it
+            # is more than the gap worse than the overall best
+            r_na = int(best_na[i])
+            if r_na >= 0 and not (
+                int(d[r_na]) > int(d[r]) + max_score_gap_to_prefer_non_alt
+            ):
+                r = r_na
+                p_all = float(np.sum(p_na[cut_na[i]:cut_na[i + 1]]))
+        p_best = float(probs[r])
+        mapq = compute_mapq(p_all, p_best, int(popular[i]))
+        out.append(ReadAlignment(
+            status="single" if mapq >= 10 else "multi",
+            cand_index=int(slot[r]),
+            direction=int(dr[r]),
+            end_loc=int(e[r]),
+            dist=int(d[r]),
+            mapq=mapq,
+            match_prob=p_best,
+            prob_all=p_all,
+        ))
+    return out, near_rows
+
+
 def collect_secondary_results(
     dists: np.ndarray,
     log_probs: np.ndarray,

@@ -43,7 +43,9 @@ from .agcigar import compute_ag_cigar_at
 from .cigar import compute_cigar
 from . import pipeline
 from .pipeline import AlignParams
-from .post import collect_secondary_results, finalize_read
+from .post import (
+    collect_secondary_results, finalize_exact_batch, finalize_read,
+)
 
 # sentinel distinguishing "no batched AG result for this row" from
 # "the batch tried and failed" (None)
@@ -909,6 +911,14 @@ class SingleEndAligner:
                     use_ukkonen=self.params.use_ukkonen,
                     lv_dists=merged["lv_dist"][:n],
                 )
+                flips = self._ag_flips(
+                    batch, arrays,
+                    [(i, i, ra) for i, (ra, _) in enumerate(batch_finalized)
+                     if batch.lengths[i] >= self.min_read_length],
+                    front_clips,
+                )
+            else:
+                flips = {}
             for i in range(len(batch)):
                 orig_len = int(batch.lengths[i])
                 if orig_len < self.min_read_length:
@@ -946,6 +956,7 @@ class SingleEndAligner:
                     use_affine_gap=self.params.use_affine_gap,
                     ag_penalties=(self.params.ag_match, self.params.ag_sub,
                                   self.params.ag_open, self.params.ag_extend),
+                    ag_restructure=flips.get(i),
                 )
                 rec.update(
                     status=ra.status, direction=ra.direction, mapq=ra.mapq,
@@ -1127,8 +1138,6 @@ class SingleEndAligner:
         self, batch, results, rows, front_clips, force_dp, wc,
         sub_b, sub_q, len_eff, chunk,
     ):
-        from .post import collect_secondary_results, finalize_read
-
         ridx = np.asarray(chunk, dtype=np.int64)
         nvalid = int(wc.valid[ridx].sum(axis=1).max())
         K = 16
@@ -1154,47 +1163,59 @@ class SingleEndAligner:
                 self._scoring_didx, t1, dev_b, dev_q, self.params,
                 force_dp=force_dp,
             )
-        with RECORDER.span("redo.finalize", rows=M):
+        with RECORDER.span("redo.finalize", rows=M) as sp:
             arrays = {
                 k: merged[k]
                 for k in ("len_eff", "clip_before", "clip_after", "escalated",
                           "body_loc", "indels")
             }
             is_alt = merged["cand_loc"] >= self.first_alt_start
-            for j, ci in enumerate(chunk):
-                i = rows[ci]
-                dist = merged["dist"][j]
-                logp = merged["log_prob"][j]
-                ag = merged["ag_score"][j]
-                e = merged["end_loc"][j]
-                cl = merged["cand_loc"][j]
-                dr = merged["direction"][j]
-                v = merged["valid"][j]
-                if self.max_dist_fraction > 0.0:
-                    limit = min(
-                        self.params.max_k,
-                        int(len_eff[ci] * self.max_dist_fraction),
-                    )
-                    v = v & (dist <= limit)
-                ra, alt_supp = finalize_read(
-                    dist, logp, ag, e, cl, dr, v, int(wc.popular[ci]),
-                    is_alt=is_alt[j],
-                    alt_awareness=self.alt_awareness,
-                    emit_alt=self.emit_alt,
-                    max_score_gap_to_prefer_non_alt=self.max_score_gap,
-                    max_k=self.params.max_k,
-                    extra_search_depth=self.params.extra_search_depth,
-                    use_ukkonen=self.params.use_ukkonen,
-                    lv_dists=merged["lv_dist"][j],
+            dist, logp, ag, e, cl, dr, valid = (
+                merged[k][:M] for k in ("dist", "log_prob", "ag_score",
+                                        "end_loc", "cand_loc", "direction",
+                                        "valid")
+            )
+            if self.max_dist_fraction > 0.0:
+                limit = np.minimum(
+                    self.params.max_k,
+                    (len_eff[ridx] * self.max_dist_fraction).astype(np.int64),
                 )
-                if ra.status == "notfound":
-                    results[i] = {"status": "notfound"}
-                    continue
-                if self.stop_on_first_hit:
-                    ra.mapq = 0
-                    ra.status = "multi"
-                    alt_supp = None
-                rec = winner_record(
+                valid = valid & (dist <= limit[:, None])
+            kw = dict(
+                alt_awareness=self.alt_awareness,
+                max_score_gap_to_prefer_non_alt=self.max_score_gap,
+                max_k=self.params.max_k,
+                extra_search_depth=self.params.extra_search_depth,
+                use_ukkonen=self.params.use_ukkonen,
+            )
+            if self.emit_alt:
+                # -ea rows keep the per-read path, as _finalize keeps them
+                finals = [
+                    finalize_read(
+                        dist[j], logp[j], ag[j], e[j], cl[j], dr[j],
+                        valid[j], int(wc.popular[ci]), is_alt=is_alt[j],
+                        emit_alt=True, lv_dists=merged["lv_dist"][j], **kw,
+                    )
+                    for j, ci in enumerate(chunk)
+                ]
+                sp.count(batched=0, per_read=M, near=0)
+            else:
+                # the best choice is finalize_read's default (affine
+                # gap), under -G- too, as snap_tpu's redo makes it
+                prim, near = finalize_exact_batch(
+                    dist, logp, ag, e, cl, dr, valid, wc.popular[ridx],
+                    is_alt=is_alt[:M], lv_dists=merged["lv_dist"][:M], **kw,
+                )
+                finals = [(ra, None) for ra in prim]
+                sp.count(batched=M, per_read=0, near=int(near.sum()))
+            flips = self._ag_flips(
+                batch, arrays,
+                [(j, rows[ci], finals[j][0]) for j, ci in enumerate(chunk)],
+                front_clips,
+            )
+
+            def record(j, i, ra, **extra):
+                return winner_record(
                     self.genome_np, self.params.max_k, batch, i, arrays,
                     ra.cand_index, ra.direction, ra.dist, int(ra.end_loc),
                     arr_i=j, use_m=self.use_m,
@@ -1203,22 +1224,26 @@ class SingleEndAligner:
                     use_affine_gap=self.params.use_affine_gap,
                     ag_penalties=(self.params.ag_match, self.params.ag_sub,
                                   self.params.ag_open, self.params.ag_extend),
+                    **extra,
                 )
+
+            for j, ci in enumerate(chunk):
+                i = rows[ci]
+                ra, alt_supp = finals[j]
+                if ra.status == "notfound":
+                    results[i] = {"status": "notfound"}
+                    continue
+                if self.stop_on_first_hit:
+                    ra.mapq = 0
+                    ra.status = "multi"
+                    alt_supp = None
+                rec = record(j, i, ra, ag_restructure=flips.get(j))
                 rec.update(
                     status=ra.status, direction=ra.direction, mapq=ra.mapq,
                     dist=ra.dist,
                 )
                 if alt_supp is not None:
-                    srec = winner_record(
-                        self.genome_np, self.params.max_k, batch, i, arrays,
-                        alt_supp.cand_index, alt_supp.direction, alt_supp.dist,
-                        int(alt_supp.end_loc), arr_i=j, use_m=self.use_m,
-                        front_extra=int(front_clips[i]),
-                        contig_bounds=self.contig_bounds,
-                    use_affine_gap=self.params.use_affine_gap,
-                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                                  self.params.ag_open, self.params.ag_extend),
-                    )
+                    srec = record(j, i, alt_supp)
                     srec.update(
                         status=alt_supp.status, direction=alt_supp.direction,
                         mapq=alt_supp.mapq, dist=alt_supp.dist,
@@ -1226,23 +1251,14 @@ class SingleEndAligner:
                     rec["alt_supplementary"] = srec
                 if self.max_secondary_edit >= 0:
                     secs = collect_secondary_results(
-                        dist, logp, ag, e, cl, dr, v, ra.cand_index, ra.dist,
-                        self.params.max_k, self.max_secondary_edit,
-                        self.max_secondary, is_alt=is_alt[j],
-                        alt_awareness=self.alt_awareness,
+                        dist[j], logp[j], ag[j], e[j], cl[j], dr[j], valid[j],
+                        ra.cand_index, ra.dist, self.params.max_k,
+                        self.max_secondary_edit, self.max_secondary,
+                        is_alt=is_alt[j], alt_awareness=self.alt_awareness,
                     )
                     sec_recs = []
                     for s in secs:
-                        sr = winner_record(
-                            self.genome_np, self.params.max_k, batch, i,
-                            arrays, s.cand_index, s.direction, s.dist,
-                            int(s.end_loc), arr_i=j, use_m=self.use_m,
-                            front_extra=int(front_clips[i]),
-                            contig_bounds=self.contig_bounds,
-                    use_affine_gap=self.params.use_affine_gap,
-                    ag_penalties=(self.params.ag_match, self.params.ag_sub,
-                                  self.params.ag_open, self.params.ag_extend),
-                        )
+                        sr = record(j, i, s)
                         sr.update(
                             status=s.status, direction=s.direction, mapq=0,
                             dist=s.dist, supplementary=s.supplementary,
@@ -1251,6 +1267,34 @@ class SingleEndAligner:
                     if sec_recs:
                         rec["secondaries"] = sec_recs
                 results[i] = rec
+
+    def _ag_flips(self, batch, arrays, winners, front_clips):
+        """The AG restructure screen of a batch's or a redo chunk's
+        winners in one ag_restructure_possible call. winners: (row of
+        `arrays`, batch row, ReadAlignment). Returns {row of `arrays`:
+        flag} for the winners winner_record would screen (found,
+        gapless, unclipped, dist >= 2 under affine gap); the others stay
+        unscreened."""
+        if not self.params.use_affine_gap:
+            return {}
+        todo = [
+            (j, i, ra) for j, i, ra in winners
+            if ra.status != "notfound" and ra.dist >= 2
+            and int(arrays["indels"][j, ra.cand_index]) == 0
+            and int(arrays["clip_before"][j, ra.cand_index]) == 0
+            and int(arrays["clip_after"][j, ra.cand_index]) == 0
+        ]
+        if not todo:
+            return {}
+        plens = [int(arrays["len_eff"][j]) for j, _, _ in todo]
+        flags = ag_restructure_possible(
+            self.genome_np, batch.bases, [i for _, i, _ in todo],
+            [ra.direction for _, _, ra in todo],
+            [int(ra.end_loc) - p for (_, _, ra), p in zip(todo, plens)],
+            plens, [int(front_clips[i]) for _, i, _ in todo],
+            [ra.dist for _, _, ra in todo],
+        )
+        return {j: bool(f) for (j, _, _), f in zip(todo, flags)}
 
     def _finalize_fast(
         self, batch: ReadBatch, handles, front_clips, plan_writer=None

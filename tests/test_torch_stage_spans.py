@@ -2,8 +2,9 @@
 Recorder, RECORDER) on the CPU: the recorder's nesting, parent, batch
 and counts; a single-end CLI run with it on, whose spans tile each batch
 and sum to AlignerStats' seconds, whose redo spans count the reads of
-the aligner's branches, and whose SAM equals the run with it off; the
-writer's queue wait; the -trace exporter's ranges.
+the aligner's branches and the rows finalized as one batch, and whose
+SAM equals the run with it off; the writer's queue wait; the -trace
+exporter's ranges.
 
 One test is marked `cuda` and skips without a card: a span and
 torch.profiler's interval of a kernel share one clock. On a machine with
@@ -208,6 +209,19 @@ def test_redo_spans_count_the_branches_reads(runs, run):
         assert inner == ["redo.dp_overflow"] * 2
     else:
         assert not ovf and br["dp_overflow"] == 0 and br["redo_edge_indel"] > 0
+
+
+@pytest.mark.parametrize("run", ["on", "overflow"])
+def test_redo_finalize_is_one_batch_a_chunk(runs, run):
+    """Under default options every wide-redo row is finalized by
+    finalize_exact_batch; none takes finalize_read."""
+    _, _, spans = runs[run]
+    fin = [s for s in spans if s[0] == "redo.finalize"]
+    assert fin
+    for *_, parent, _, c in fin:
+        assert parent == "redo.wide"
+        assert c["batched"] + c["per_read"] == c["rows"] > 0
+        assert c["per_read"] == 0 and 0 <= c["near"] <= c["rows"]
 
 
 def test_sam_is_the_same_with_the_recorder_on(runs):
