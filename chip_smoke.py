@@ -974,7 +974,7 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
     params = AlignParams(seed_len=24, max_probe=idx.max_probe)
 
     def step(phase_c=False, bb=b, qq=q, ll=ln, didx=idx.device):
-        packed, _ = align_winners_device(
+        packed, _, _ = align_winners_device(
             didx, bb, qq, ll, fas.to(bb.device), params,
             adaptive=True, phase_c=phase_c,
         )

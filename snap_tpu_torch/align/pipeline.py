@@ -1566,7 +1566,7 @@ def _awd_fused(
         didx, bases, out, first_alt_start, needs_total, params, dp_rows,
         alt_awareness, max_score_gap,
     )
-    return packed, out
+    return packed, out, needs_total
 
 
 def _phase_b_params(params: AlignParams) -> AlignParams:
@@ -1610,7 +1610,11 @@ def align_winners_device(
 ):
     """Production fast path: align + device finalize on the device the
     index and reads live on. Returns (packed winners [B+1, 6] int32,
-    per-candidate output: SingleAlignOut, or ABOut when adaptive).
+    per-candidate output: SingleAlignOut, or ABOut when adaptive, the DP
+    tier of each phase that ran as (phase, rows needed: [] int on the
+    step's device, rows held) triples). A phase overflowed where it
+    needed more rows than it held; the packed winners' dp_overflow bit
+    is then set.
 
     adaptive=True replays SNAP's seed-loop early termination
     (BaseAligner.cpp:1028): phase A probes the first unwrapped seed pass
@@ -1632,27 +1636,49 @@ def align_winners_device(
     P = L - params.seed_len + 1
     s1_lookups = (P - 1) // params.seed_len + 1 if P > 0 else 1
     if not adaptive or s1_lookups >= params.num_lookups:
-        return _awd_fused(
+        packed, out, needs = _awd_fused(
             didx, bases, quals, lens, first_alt_start, params,
             dp_rows, alt_awareness, max_score_gap,
         )
+        return packed, out, (("a", needs, dp_rows),)
 
     B2 = phase_b_rows or max(min(256, B), B // 4)
     out_a, win_a, needs_a, rows, live, overflow = _awd_phase_a(
         didx, bases, quals, lens, first_alt_start, params,
         alt_awareness, max_score_gap, s1_lookups, B2,
     )
-    packed, win_ab, ab = _awd_phase_b(
+    packed, win_ab, ab, needs_b = _awd_phase_b(
         didx, bases, quals, lens, first_alt_start, params,
         alt_awareness, max_score_gap, B2,
         out_a, win_a, needs_a, rows, live, overflow,
     )
-    if not phase_c:
-        return packed, ab
-    return _awd_phase_c(
-        didx, bases, quals, lens, first_alt_start, params,
-        alt_awareness, max_score_gap, packed, win_ab, ab,
-    )
+    demand = [("a", needs_a, _dp_rows_a(B, params)),
+              ("b", needs_b, _dp_rows_b(B, B2, params))]
+    out = ab
+    if phase_c:
+        packed, out, needs_c = _awd_phase_c(
+            didx, bases, quals, lens, first_alt_start, params,
+            alt_awareness, max_score_gap, packed, win_ab, ab,
+        )
+        demand.append(("c", needs_c, _dp_rows_c(_phase_c_rows(B))))
+    return packed, out, tuple(demand)
+
+
+def _dp_rows_a(B: int, params: AlignParams) -> int:
+    return max(512, (B * min(4, params.max_cand)) // 16)
+
+
+def _dp_rows_b(B: int, B2: int, params: AlignParams) -> int:
+    return max(2048, (B2 * _phase_b_params(params).max_cand) // 4,
+               (B * params.max_cand) // 128)
+
+
+def _phase_c_rows(B: int) -> int:
+    return max(min(128, B), B // 16)
+
+
+def _dp_rows_c(B3: int) -> int:
+    return max(1024, (B3 * 64) // 4)
 
 
 def _awd_phase_a(
@@ -1666,7 +1692,7 @@ def _awd_phase_a(
     params_a = dataclasses.replace(
         params, num_seeds=2 * s1_lookups - 2, max_cand=K_A
     )
-    dp_a = max(512, (B * K_A) // 16)
+    dp_a = _dp_rows_a(B, params)
     bundle, lowest = _awd_candidates(
         didx, bases, quals, lens, params_a, return_lowest=True
     )
@@ -1740,7 +1766,7 @@ def _awd_phase_b(
 ):
     B, L = bases.shape
     params_b = _phase_b_params(params)
-    dp_b = max(2048, (B2 * params_b.max_cand) // 4, (B * params.max_cand) // 128)
+    dp_b = _dp_rows_b(B, B2, params)
     b_b, q_b, l_b = bases[rows], quals[rows], lens[rows]
     bundle = _awd_candidates(didx, b_b, q_b, l_b, params_b)
     out_b, needs_b = _awd_score(didx, b_b, q_b, bundle, params_b, dp_b)
@@ -1748,13 +1774,11 @@ def _awd_phase_b(
         didx, b_b, out_b, first_alt_start, needs_b, params_b, dp_b,
         alt_awareness, max_score_gap,
     )
-    K_A = min(4, params.max_cand)
-    dp_a = max(512, (B * K_A) // 16)
     packed, win_ab = _awd_merge(
         out_a, win_a, out_b, win_b, rows, live, overflow,
-        needs_a, needs_b, dp_a, dp_b,
+        needs_a, needs_b, _dp_rows_a(B, params), dp_b,
     )
-    return packed, win_ab, ABOut(out_a, out_b, rows, live, overflow)
+    return packed, win_ab, ABOut(out_a, out_b, rows, live, overflow), needs_b
 
 
 def _awd_merge(
@@ -1783,11 +1807,11 @@ def _awd_phase_c(
     at hit_cap=128 / K=64 on B/16 rows. Residual truncation keeps the
     flag and takes the host wide redo."""
     B = bases.shape[0]
-    B3 = max(min(128, B), B // 16)
+    B3 = _phase_c_rows(B)
     params_c = dataclasses.replace(
         params, hit_cap=max(128, params.hit_cap), max_cand=64
     )
-    dp_c = max(1024, (B3 * params_c.max_cand) // 4)
+    dp_c = _dp_rows_c(B3)
     rows3, live3 = _awd_pick_rows(win_ab.truncated, B3)
     b_c, q_c, l_c = bases[rows3], quals[rows3], lens[rows3]
     bundle = _awd_candidates(didx, b_c, q_c, l_c, params_c)
@@ -1797,7 +1821,7 @@ def _awd_phase_c(
         alt_awareness, max_score_gap,
     )
     packed2 = _awd_merge_c(win_ab, win_c, rows3, live3, needs_c, dp_c)
-    return packed2, ab._replace(c=out_c, rows_c=rows3, live_c=live3)
+    return packed2, ab._replace(c=out_c, rows_c=rows3, live_c=live3), needs_c
 
 
 def _awd_merge_c(win_ab, win_c, rows, live, needs_c, dp_c):

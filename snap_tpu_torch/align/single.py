@@ -717,16 +717,25 @@ class SingleEndAligner:
             and self.max_dist_fraction == 0.0
         )
 
-    def _start_win_prefetch(self, win):
+    def _start_win_prefetch(self, win, demand=None):
         """Begin the packed-winners device->host copy (keyed by tensor
         identity; _finalize_fast consumes it): on CUDA a non-blocking
-        copy into pinned memory and an event recorded after it."""
+        copy into pinned memory and an event recorded after it. The
+        step's DP-tier demand, where given, is copied before the same
+        event."""
         # pin `win` in the value so its id can't be reused while queued;
         # a single-slot pipeline never holds more than 2 entries — if an
         # abandoned batch (exception mid-loop, discarded handles) left
         # stale entries behind, drop them
         if len(self._win_futures) >= 2:
             self._win_futures.clear()
+        tier = None
+        if demand is not None:
+            needs = torch.stack([n.to(torch.int64) for _, n, _ in demand])
+            if win.is_cuda:
+                pinned = torch.empty(needs.shape, dtype=needs.dtype, pin_memory=True)
+                needs = pinned.copy_(needs, non_blocking=True)
+            tier = ([(p, rows) for p, _, rows in demand], needs)
         if win.is_cuda:
             host = torch.empty(win.shape, dtype=win.dtype, pin_memory=True)
             host.copy_(win, non_blocking=True)
@@ -734,19 +743,27 @@ class SingleEndAligner:
             done.record()
         else:
             host, done = win, None
-        self._win_futures[id(win)] = (win, host, done)
+        self._win_futures[id(win)] = (win, host, done, tier)
 
     def _fetch_winners(self, win):
-        """The packed winners as numpy, waiting for the prefetch copy."""
+        """(the packed winners as numpy, waiting for the prefetch copy;
+        the DP tier's counts {dp_need_<phase>, dp_rows_<phase>} of the
+        step, or {} where its demand was not copied)."""
         pf = self._win_futures.pop(id(win), None)
         if pf is None:
             with RECORDER.span("finalize.winners_wait"):
-                return win.cpu().numpy()
-        _, host, done = pf
+                return win.cpu().numpy(), {}
+        _, host, done, tier = pf
         if done is not None:
             with RECORDER.span("finalize.winners_wait"):
                 done.synchronize()
-        return host.numpy()
+        counts = {}
+        if tier is not None:
+            phases, needs = tier
+            for (p, rows), need in zip(phases, needs.tolist()):
+                counts[f"dp_need_{p}"] = need
+                counts[f"dp_rows_{p}"] = rows
+        return host.numpy(), counts
 
     def close(self) -> None:
         """Drop pending winners prefetches. Idempotent; align_file calls
@@ -796,7 +813,7 @@ class SingleEndAligner:
             )
             return (t1, dev_bases, dev_quals), front_clips
         if self._fast_ok:
-            win, out = pipeline.align_winners_device(
+            win, out, demand = pipeline.align_winners_device(
                 self.index.device, dev_bases, dev_quals, dev_lens,
                 self._fas_dev, self.params,
                 alt_awareness=self.alt_awareness,
@@ -804,7 +821,8 @@ class SingleEndAligner:
                 adaptive=self.adaptive,
                 phase_c=self._use_phase_c,
             )
-            self._start_win_prefetch(win)
+            # the DP tier's demand is copied only where a recorder keeps it
+            self._start_win_prefetch(win, demand if RECORDER.on else None)
             return (
                 ("fast", win, out, dev_bases, dev_quals, dev_lens),
                 front_clips,
@@ -1310,26 +1328,27 @@ class SingleEndAligner:
         from .post import finalize_read
 
         (_, win_dev, out_dev, dev_bases, dev_quals, dev_lens) = handles
-        packed = self._fetch_winners(win_dev)
-        with RECORDER.span("finalize.unpack"):
+        packed, tier = self._fetch_winners(win_dev)
+        with RECORDER.span("finalize.unpack", **tier):
             win = HostWinners(packed)
         if bool(win.dp_overflow):
             # DP tier truncated (extremely gappy batch): redo through the
             # host-gated two-phase path, which sizes the tier exactly
             self.branches["dp_overflow"] += len(batch)
             with RECORDER.span("redo.dp_overflow", reads=len(batch)):
-                if self.mesh is not None:
-                    from ..parallel.mesh import align_tier1_sharded
+                with RECORDER.span("two_phase.tier1", reads=len(batch)):
+                    if self.mesh is not None:
+                        from ..parallel.mesh import align_tier1_sharded
 
-                    t1 = align_tier1_sharded(
-                        self.index.device_sharded, dev_bases, dev_quals,
-                        dev_lens, self.params, self.mesh,
-                    )
-                else:
-                    t1 = pipeline.align_tier1(
-                        self.index.device, dev_bases, dev_quals, dev_lens,
-                        self.params,
-                    )
+                        t1 = align_tier1_sharded(
+                            self.index.device_sharded, dev_bases, dev_quals,
+                            dev_lens, self.params, self.mesh,
+                        )
+                    else:
+                        t1 = pipeline.align_tier1(
+                            self.index.device, dev_bases, dev_quals, dev_lens,
+                            self.params,
+                        )
                 return self._finalize(
                     batch, (t1, dev_bases, dev_quals), front_clips,
                     plan_writer=plan_writer,

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..stats import RECORDER
 from . import _build
 from .affine import (
     LOG_GAP_EXTEND,
@@ -35,6 +36,15 @@ MAX_L = 512  # 64 threads of up to 8 columns a row; longer: big rows
 # kernel (64 threads a row)
 BLOCK_COLS = 128
 PLAN_HEADER = 12  # csrc/affine.cu kHeader
+
+
+def route(L: int) -> str:
+    """The span count a launch over L pattern columns adds to: the
+    one-warp passes (pass_kernel), pass_xl_row_kernel for the rows past
+    BLOCK_COLS, or pass_row_kernel for those past MAX_L."""
+    if L <= BLOCK_COLS:
+        return "launch.affine"
+    return "launch.affine_xl" if L <= MAX_L else "launch.affine_row"
 
 
 def plan_ints(N: int) -> int:
@@ -97,6 +107,7 @@ def affine_extend_core_cuda(
     )
     _build.check(err, "affine_extend")
     affine_extend_core_cuda.launches += 1
+    RECORDER.tally(route(L))
     out_i = out_i[: 7 * N].view(N, 7)
     return ExtendBest(
         out_i[:, 0], out_i[:, 1], out_f[:, 0], out_i[:, 2],

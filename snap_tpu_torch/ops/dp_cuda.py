@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..stats import RECORDER
 from . import _build
 from .dp import (
     LOG_GAP_EXTEND,
@@ -28,6 +29,14 @@ from .dp import (
 
 MAX_COLS = 256  # W + 1 of the one-warp kernel: 8 columns per lane
 MID_COLS = 512  # W + 1 of the mid-width kernel: one strip a row
+
+
+def route(W: int) -> str:
+    """The span count a launch over W text columns adds to:
+    fitting_dp_kernel, fitting_dp_mid_kernel or fitting_dp_row_kernel."""
+    if W + 1 <= MAX_COLS:
+        return "launch.dp"
+    return "launch.dp_mid" if W + 1 <= MID_COLS else "launch.dp_row"
 
 
 KERNEL = _build.Kernel(
@@ -81,6 +90,7 @@ def fitting_edit_distance_core_cuda(pattern, pat_logq, plen, text, anchored):
     )
     _build.check(err, "fitting_edit_distance")
     fitting_edit_distance_core_cuda.launches += 1
+    RECORDER.tally(route(W))
     return packed, lp, end
 
 

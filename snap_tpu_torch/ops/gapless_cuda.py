@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ..stats import RECORDER
 from . import _build
 from .gapless import gapless_prescreen_plain
 from .sums import WINDOW, window_origin
@@ -42,6 +43,12 @@ def split_chunk(split: int) -> int:
     """First-level windows the split kernel's block stages and sums at a
     time: WINDOWS_PER_THREAD a thread, at most MAX_CHUNK."""
     return min(WINDOWS_PER_THREAD * split, MAX_CHUNK)
+
+
+def route(L: int) -> str:
+    """The span count a launch at L positions adds to: one thread a pair
+    (gapless_kernel) or the split kernel (gapless_split_kernel)."""
+    return "launch.gapless" if L <= ONE_THREAD_L else "launch.gapless_split"
 
 
 KERNEL = _build.Kernel(
@@ -93,6 +100,7 @@ def gapless_prescreen_cuda(
     )
     _build.check(err, "gapless_prescreen")
     gapless_prescreen_cuda.launches += 1
+    RECORDER.tally(route(L))
     return dist, logp
 
 

@@ -310,6 +310,16 @@ class Recorder:
         whether the recorder is on or not, recorded when on."""
         return Span(self, name, batch, counts)
 
+    def tally(self, name: str, n: int = 1) -> None:
+        """Add n to the count `name` of the innermost span open on this
+        thread; nothing when off or when no span is open."""
+        if not self.on:
+            return
+        stack = self._stack()
+        if stack:
+            counts = stack[-1].counts
+            counts[name] = counts.get(name, 0) + n
+
 
 RECORDER = Recorder()
 

@@ -43,7 +43,7 @@ def _align(idx, seqs, params, **kw):
     bases[:, :L] = seqs
     quals = np.zeros((B, ML), np.uint8)
     quals[:, :L] = ord("I")
-    win, _ = align_winners_device(
+    win, _, _ = align_winners_device(
         idx.device,
         torch.from_numpy(bases),
         torch.from_numpy(quals),
@@ -135,11 +135,11 @@ def test_phase_c_wide_tile_recovers_truncated_rows():
     ln = torch.from_numpy(np.full(B, L, np.int32))
     fas = torch.tensor(bases_g.shape[0])
 
-    base, _ = align_winners_device(didx, b, q, ln, fas, params, adaptive=True)
+    base, _, _ = align_winners_device(didx, b, q, ln, fas, params, adaptive=True)
     wb = HostWinners(base)
     assert wb.truncated.sum() > 10, "repeat reads must truncate at A/B"
 
-    wc_packed, _ = align_winners_device(
+    wc_packed, _, _ = align_winners_device(
         didx, b, q, ln, fas, params, adaptive=True, phase_c=True
     )
     wc = HostWinners(wc_packed)
@@ -148,7 +148,7 @@ def test_phase_c_wide_tile_recovers_truncated_rows():
     )
 
     wide = dataclasses.replace(params, hit_cap=128, max_cand=64)
-    ref_packed, _ = align_winners_device(
+    ref_packed, _, _ = align_winners_device(
         didx, b, q, ln, fas, wide, adaptive=False, dp_rows=4096
     )
     wr = HostWinners(ref_packed)

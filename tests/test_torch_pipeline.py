@@ -134,7 +134,7 @@ def test_packed_winners_bit_identical(case, mode):
     jd, jb, jq, jl, jp = case["jax"]
     td, tb, tq, tl, tp = case["torch"]
     jpk, jout = J.align_winners_device(jd, jb, jq, jl, jnp.int64(case["fas"]), jp, **mode)
-    tpk, tout = T.align_winners_device(td, tb, tq, tl, torch.tensor(case["fas"]), tp, **mode)
+    tpk, tout, _ = T.align_winners_device(td, tb, tq, tl, torch.tensor(case["fas"]), tp, **mode)
     jpk = np.asarray(jpk)
     assert tpk.dtype == torch.int32 and tuple(tpk.shape) == (B + 1, T.PACK_WORDS)
     np.testing.assert_array_equal(tpk.numpy(), jpk)
@@ -157,3 +157,34 @@ def test_packed_winners_bit_identical(case, mode):
     for k in um:
         if k != "log_prob":
             np.testing.assert_array_equal(ut[k], um[k], err_msg=k)
+
+
+@pytest.mark.parametrize(
+    "mode",
+    [dict(adaptive=False), dict(adaptive=True), dict(adaptive=True, phase_c=True)],
+    ids=["full_depth", "adaptive", "adaptive_phase_c"],
+)
+def test_demand_leaves_the_packed_winners_bit_identical(case, mode, monkeypatch):
+    """The step's third value, the DP tier of each phase that ran, leaves
+    the packed winners snap_tpu's bit for bit; each phase needed the rows
+    its _awd_score computed and held the rows it was given, and the
+    dp_overflow bit is set exactly where a phase needed more than it held."""
+    jd, jb, jq, jl, jp = case["jax"]
+    td, tb, tq, tl, tp = case["torch"]
+    scores, score = [], T._awd_score
+
+    def counted(didx, bases, quals, bundle, params, dp_rows):
+        out, needs = score(didx, bases, quals, bundle, params, dp_rows)
+        scores.append((int(needs), dp_rows))
+        return out, needs
+
+    monkeypatch.setattr(T, "_awd_score", counted)
+    jpk, _ = J.align_winners_device(jd, jb, jq, jl, jnp.int64(case["fas"]), jp, **mode)
+    tpk, _, demand = T.align_winners_device(
+        td, tb, tq, tl, torch.tensor(case["fas"]), tp, **mode)
+    np.testing.assert_array_equal(tpk.numpy(), np.asarray(jpk))
+    phases = ("a", "b", "c") if mode.get("phase_c") else ("a", "b") if mode["adaptive"] else ("a",)
+    assert tuple(p for p, _, _ in demand) == phases
+    assert [(int(n), r) for _, n, r in demand] == scores
+    overflow = any(n > r for n, r in scores)
+    assert T.HostWinners(tpk).dp_overflow == overflow

@@ -167,7 +167,7 @@ def main(argv: list[str] | None = None) -> dict:
             first_reads = reads
         reads_d = torch.from_numpy(reads).to(dev)
         ts = time.perf_counter()
-        win, _ = align_winners_device(didx, reads_d, quals, lens, fas, params)
+        win, _, _ = align_winners_device(didx, reads_d, quals, lens, fas, params)
         packed = win.cpu().numpy()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         if bi == 0 and args.first_winners:
@@ -241,7 +241,7 @@ def check_on_cpu(index, reads: np.ndarray, fas, params) -> dict:
     out = []
     for dev, didx in ((index.torch_device, index.device),
                       (torch.device("cpu"), index.on("cpu"))):
-        win, _ = align_winners_device(
+        win, _, _ = align_winners_device(
             didx, torch.from_numpy(reads).to(dev),
             torch.full((n, L), ord("I"), dtype=torch.uint8, device=dev),
             torch.full((n,), L, dtype=torch.int32, device=dev),

@@ -81,8 +81,8 @@ def main() -> None:
 
         P._awd_merge = kept
         try:
-            packed, _ = P.align_winners_device(didx, bases, q, lens, torch.tensor(1 << 40),
-                                               params, adaptive=True)
+            packed, _, _ = P.align_winners_device(didx, bases, q, lens, torch.tensor(1 << 40),
+                                                  params, adaptive=True)
         finally:
             P._awd_merge = merge
         t1 = P.align_tier1(didx, bases, q, lens, P._phase_b_params(params))

@@ -10,6 +10,15 @@ phase-C steps, so a run shows which paths it exercised.
     python tools/parity_at_scale.py                  # 2 Mbp, 4096 reads, 2048 pairs
     python tools/parity_at_scale.py --genome-len 4000000 --reads 8192
     python tools/parity_at_scale.py --layout hg38    # GRCh38 coordinates
+    python tools/parity_at_scale.py --config ecoli.miseq250 \
+        --traffic refstrain250.b16384 --reads 2048    # a benchmark cell's reads
+
+--config and --traffic take a benchmark configuration's genome
+(benchmark/configs/<name>.json, made by benchmark/snapbench's
+synthesizer) and the first --reads reads of a traffic file's pool
+(benchmark/traffic/<name>.json, drawn from its pool_seed as a benchmark
+run draws them), and run `index` with the configuration's options and
+`single` with the traffic's, and no `paired`.
 
 --layout hg38 lays the reads out at GRCh38's coordinates (chip_smoke's
 hg38 layout: the 25 contigs of the primary assembly at their lengths,
@@ -50,6 +59,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 INPUTS = ("g.fa", "r.fq", "r1.fq", "r2.fq")
+BENCH = os.path.join(REPO, "benchmark")
+
+
+def bench_file(kind: str, name: str) -> dict:
+    with open(os.path.join(BENCH, kind, name + ".json")) as f:
+        return json.load(f)
+
+
+def write_bench_inputs(directory: str, config: dict, tr: dict, n: int) -> None:
+    """A benchmark configuration's genome and its traffic's first n reads."""
+    sys.path.insert(1, BENCH)
+    from snapbench import genome, traffic
+
+    codes = genome.make_genome(config)
+    genome.write_fasta(os.path.join(directory, "g.fa"), config["contig"], codes)
+    pool = traffic.draw_reads(np.random.default_rng(tr["pool_seed"]), codes, n, tr)
+    with open(os.path.join(directory, "r.fq"), "wb") as f:
+        f.write(traffic.fastq_bytes(b"r", 0, pool.bases, pool.quals))
 
 
 def write_inputs(directory: str, args) -> None:
@@ -243,6 +270,8 @@ def main() -> None:
     ap.add_argument("--pairs", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--config", help="a benchmark configuration's genome (with --traffic)")
+    ap.add_argument("--traffic", help="a benchmark traffic file's reads and options")
     ap.add_argument("--same-logq", choices=("on", "off"), default="on")
     ap.add_argument("--sides", default="port,snap_tpu",
                     help="which packages run (the comparison needs both)")
@@ -259,31 +288,40 @@ def main() -> None:
     sides = args.sides.split(",")
     inputs = os.path.join(work, "inputs")
     os.makedirs(inputs, exist_ok=True)
+    b = ["-b", str(args.batch)]
     t0 = time.time()
-    write_inputs(inputs, args)
+    if args.traffic:
+        config, tr = bench_file("configs", args.config), bench_file("traffic", args.traffic)
+        write_bench_inputs(inputs, config, tr, args.reads)
+        groups = {"main": [["index", "g.fa", "idx", *config["index_options"]],
+                           ["single", "idx", "r.fq", "-o", "single.sam", *b, *tr["options"]]]}
+        sams = ["single"]
+    else:
+        write_inputs(inputs, args)
+        groups = {"main": [["index", "g.fa", "idx", "-s", "24"],
+                           ["single", "idx", "r.fq", "-o", "single.sam", *b],
+                           ["paired", "idx", "r1.fq", "r2.fq", "-o", "paired.sam", *b]]}
+        if args.layout == "hg38":
+            groups["ishards2"] = [["single", "idx", "r.fq", "-o", "ishards2.sam", *b,
+                                   "-ishards", "2"]]
+        sams = ["single", "paired"] + (["ishards2"] if args.layout == "hg38" else [])
     inputs_s = time.time() - t0
     for side in sides:  # the same inputs, linked into each side's directory
         os.makedirs(os.path.join(work, side), exist_ok=True)
         for f in INPUTS:
             link = os.path.join(work, side, f)
-            if not os.path.lexists(link):
+            if os.path.exists(os.path.join(inputs, f)) and not os.path.lexists(link):
                 os.symlink(os.path.join(inputs, f), link)
-    b = ["-b", str(args.batch)]
-    groups = {"main": [["index", "g.fa", "idx", "-s", "24"],
-                       ["single", "idx", "r.fq", "-o", "single.sam", *b],
-                       ["paired", "idx", "r1.fq", "r2.fq", "-o", "paired.sam", *b]]}
-    if args.layout == "hg38":
-        groups["ishards2"] = [["single", "idx", "r.fq", "-o", "ishards2.sam", *b,
-                               "-ishards", "2"]]
     runs = {side: {g: run_side(args, work, side, argvs, 2 if g == "ishards2" else 1)
                    for g, argvs in groups.items()} for side in sides}
-    sams = ["single", "paired"] + (["ishards2"] if args.layout == "hg38" else [])
     out = {
         "layout": args.layout, "reads": args.reads, "pairs": args.pairs,
         "batch": args.batch, "same_logq": args.same_logq, "workdir": work,
         "inputs_s": inputs_s, "runs": runs,
     }
-    if args.layout == "hg38":
+    if args.traffic:
+        out.update(config=args.config, traffic=args.traffic, pairs=0)
+    elif args.layout == "hg38":
         from chip_smoke import HG38_BP, hg38_summary
 
         out.update(genome_bp=HG38_BP, chr21_len=args.chr21_len)
