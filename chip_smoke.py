@@ -4,10 +4,11 @@
     python3 chip_smoke.py                       # as the acceptance run
     python3 chip_smoke.py --genome-len 4641652  # a quicker, smaller run
     python3 chip_smoke.py --baseline .archive   # also time the kernels there
+    python3 chip_smoke.py --only agcigar        # build, then the agcigar phase
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi) and torch's name
-  build    nvcc builds the three kernels from snap_tpu_torch/csrc
+  build    nvcc builds the kernels from snap_tpu_torch/csrc
   e2e      the adaptive single-end device step end to end: a 25%-repeat
            genome of chr21's length written as FASTA and indexed once by
            the port's `index` command (the index is then loaded), 16384
@@ -172,6 +173,21 @@ Phases, each printing one JSON line:
            the launch counts set to 0 just before and read just after
            (fails if a kernel was not launched). One line a tool run,
            its JSON under "result".
+  agcigar  a timing aid for the emission AG CIGAR kernel
+           (csrc/agcigar.cu): synthetic rows of one batch of
+           ecoli.single250 (5,000 of 250 bp) and of ecoli.single (2,650
+           of 100 bp), and 1,000 rows of 400 bp and 200 of 1,500 bp (the
+           global plane's), on a random genome of E. coli's length: bit
+           for bit against its plain version, device ms, one host
+           round's call ms, the plain version's and the host's native
+           row loop's ms, the bound. One line a shape. The kernel's
+           launches on the main paths are counted by each run (the
+           `agcigar` key of its launches), and those of the sam, hg38
+           and mesh recording runs' first finalizes, the paired ones'
+           first batches and the long runs' first batches are replayed
+           against the plain version bit for bit like the other
+           kernels'; the sam phase fails if its recording run launched
+           none.
   card_vs_cpu  the first reads of the sam run (1024), the paired run
            (512 pairs), each long and options run (128; 16 at 1500 bp;
            512), the -t 4 run (1024), the hg38 phase's `single` (512:
@@ -240,6 +256,9 @@ INT32_OPS_PER_S = 67e12 / 4
 # once per row or per read are left out. The breakdown is in PERF.md.
 DP_OPS_PER_CELL = (26, 7)      # ops/dp.py fitting_edit_distance_core_plain
 AG_OPS_PER_CELL = (44, 7)      # ops/affine.py affine_extend_core_plain
+# ops/agcigar_cuda.py ag_traceback_plain: score 6, m 1, F's scan term 4,
+# F 2, H 2, the four traceback bits 13, E 1
+AGTB_OPS_PER_CELL = 29
 GL_OPS_PER_WORD = 11           # ops/gapless.py, per (read, candidate, word)
 GL_OPS_PER_MISMATCH = (3, 1)   # find the set bit, add its ln P(error)
 
@@ -335,7 +354,8 @@ def device_ms(fn, per_graph: int = 50, reps: int = 5) -> float:
 def float_err(got, ref) -> float:
     """Largest absolute difference over the float outputs of two result
     tuples (their integer outputs are held equal separately)."""
-    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(outputs(got), outputs(ref))
             if a.dtype.is_floating_point and a.numel()]
     return max(errs, default=0.0)
 
@@ -353,11 +373,14 @@ def bound_ms(nbytes: float, int_ops: float, fp_ops: float) -> tuple[float, str]:
 
 
 def kernel_table() -> dict:
-    """name -> (the pipeline's name for the wrapper it calls, the kernel
+    """name -> (the pipeline's name for the wrapper it calls, or an
+    (owner, name) pair for a wrapper called elsewhere, the kernel
     wrapper that counts launches, the kernel's plain version, a function
     turning the pipeline call's (args, kwargs) into the kernel
     wrapper's, and the wrapper's C launcher)."""
-    from snap_tpu_torch.ops import affine, affine_cuda, dp, dp_cuda, gapless, gapless_cuda
+    from snap_tpu_torch.ops import (
+        affine, affine_cuda, agcigar_cuda, dp, dp_cuda, gapless, gapless_cuda,
+    )
 
     return {
         "gapless_prescreen": (
@@ -377,7 +400,52 @@ def kernel_table() -> dict:
             affine.affine_extend_core_plain, lambda a, kw: (a[:6], kw),
             affine_cuda.KERNEL,
         ),
+        # launched by the host's AG CIGAR batches (agcigar.compute_ag_cigar_batch)
+        "agcigar": (
+            (agcigar_cuda, "ag_traceback_cuda"), agcigar_cuda.ag_traceback_cuda,
+            _ag_plain, _ag_args, agcigar_cuda.KERNEL,
+        ),
     }
+
+
+def _ag_args(a, kw):
+    """ag_traceback_cuda's arguments with the genome cut to the rows'
+    texts and each row's location moved into the cut (the kernel reads
+    genome[loc : loc + T] only), so that a recorded launch keeps its
+    rows' bytes and not the genome."""
+    import torch
+
+    genome, meta, pat, *rest = a
+    T = meta[:, 3]
+    start = torch.cumsum(T, 0) - T
+    idx = (torch.arange(int(T.sum()), device=meta.device)
+           + torch.repeat_interleave(meta[:, 2] - start, T))
+    cut = meta.clone()
+    cut[:, 2] = start
+    return (genome[idx], cut, pat, *rest), kw
+
+
+def _ag_plain(genome, meta, pat, R, groups, *scores):
+    """ag_traceback_cuda's plain version on the CPU, its result back on
+    the card."""
+    from snap_tpu_torch.ops import agcigar_cuda
+
+    return agcigar_cuda.ag_traceback_plain(
+        genome.cpu(), meta.cpu(), pat.cpu(), R, *scores).to(meta.device)
+
+
+def no_calls() -> dict:
+    """Recorded launches by kernel, none yet."""
+    return {name: [] for name in kernel_table()}
+
+
+def ag_rows_key() -> tuple:
+    """`recording`'s key for the host's calls of the AG CIGAR kernel
+    (ops.agcigar_cuda.ag_traceback_rows, one a round of a batch's fixup
+    loop)."""
+    from snap_tpu_torch.ops import agcigar_cuda
+
+    return (agcigar_cuda, "ag_traceback_rows")
 
 
 @contextlib.contextmanager
@@ -408,8 +476,9 @@ def recording(calls: dict, inside: dict | None = None):
                 depth[0] -= follow
 
         setattr(owner, fname, within)
-    for name, (attr, _, _, core, _) in kernel_table().items():
-        fn = saved[(pipeline, attr)] = getattr(pipeline, attr)
+    for name, (key, _, _, core, _) in kernel_table().items():
+        owner, attr = key if isinstance(key, tuple) else (pipeline, key)
+        fn = saved[(owner, attr)] = getattr(owner, attr)
 
         def rec(*a, _fn=fn, _name=name, _core=core, **kw):
             if depth[0] or not inside:
@@ -419,7 +488,7 @@ def recording(calls: dict, inside: dict | None = None):
                 ))
             return _fn(*a, **kw)
 
-        setattr(pipeline, attr, rec)
+        setattr(owner, attr, rec)
     try:
         yield
     finally:
@@ -434,6 +503,9 @@ def tensor_bytes(xs) -> int:
 
 
 def shape_of(name: str, args) -> dict:
+    if name == "agcigar":
+        meta = args[1]
+        return {"rows": meta.shape[0], "L": int(meta[:, 1].max()), "T": int(meta[:, 3].max())}
     if name == "gapless_prescreen":
         return {"B": args[0].shape[0], "K": args[10]}
     return {"N": args[0].shape[0], "L": args[0].shape[1], "W": args[3].shape[1]}
@@ -441,6 +513,9 @@ def shape_of(name: str, args) -> dict:
 
 def work_ops(name: str, args, got) -> tuple[float, float]:
     """(integer, float) operations that these inputs need."""
+    if name == "agcigar":
+        meta = args[1]
+        return float((meta[:, 1].double() * meta[:, 3].double()).sum()) * AGTB_OPS_PER_CELL, 0.0
     if name == "gapless_prescreen":
         B, K, PW = args[0].shape[0], args[10], args[11]
         mism = float(got[0].sum())
@@ -461,7 +536,15 @@ def work_ops(name: str, args, got) -> tuple[float, float]:
 OUTPUT_FIELDS = {
     "gapless_prescreen": ("dist", "logp_err"),
     "fitting_edit_distance": ("packed", "log_prob", "end_col"),
+    "agcigar": ("runs",),
 }
+
+
+def outputs(x) -> tuple:
+    """A kernel's outputs as a tuple (agcigar returns one tensor)."""
+    import torch
+
+    return (x,) if torch.is_tensor(x) else x
 
 
 def differing(name: str, got, ref) -> list[str]:
@@ -471,7 +554,7 @@ def differing(name: str, got, ref) -> list[str]:
 
     fields = getattr(got, "_fields", None) or OUTPUT_FIELDS[name]
     out = []
-    for g, r, field in zip(got, ref, fields):
+    for g, r, field in zip(outputs(got), outputs(ref), fields):
         gi, ri = g.contiguous().view(torch.int32), r.contiguous().view(torch.int32)
         if not torch.equal(gi, ri):
             out.append(f"{field} differs in {int((gi != ri).sum())} of {g.numel()}")
@@ -725,7 +808,7 @@ def time_launches(calls: dict, base: dict | None = None, phase: str = "kernels",
             row["call_ms"] = cuda_ms(run)
             row["plain_ms"] = (cuda_ms(lambda: plain(*args, **kw), plain_reps)
                                if plain_reps else ev[0].elapsed_time(ev[1]))
-            nbytes = tensor_bytes(args) + tensor_bytes(got)
+            nbytes = tensor_bytes(args) + tensor_bytes(outputs(got))
             int_ops, fp_ops = work_ops(name, args, got)
             bms, by = bound_ms(nbytes, int_ops, fp_ops)
             row.update({
@@ -735,6 +818,103 @@ def time_launches(calls: dict, base: dict | None = None, phase: str = "kernels",
             rows.append(row)
         summary[name] = rows
     return summary
+
+
+# The emission AG CIGAR rows of one batch of each cell whose batches
+# send rows there: (read length, rows). ecoli.single250: ~31% of a
+# 16,384-read batch; ecoli.single: ~2,650 rows of a 65,536-read batch
+# (PERF.md section 5); and rows of -rl 400 and of 1500 bp reads, which
+# no cell has (some in the global plane).
+AGCIGAR_SHAPES = {"ecoli.single250": (250, 5_000), "ecoli.single": (100, 2_650),
+                  "rl400": (400, 1_000), "rl1500": (1_500, 200)}
+
+
+def agcigar_rows(rng, codes: np.ndarray, L: int, n: int):
+    """n rows as align.single sends them to compute_ag_cigar_batch: a
+    read body of L bases from the genome with 1% of positions redrawn,
+    a third with a 1-3 bp indel and a few with a 1-6 base soft clip,
+    and winner_record's text margin from its edit distance. Returns
+    (meta [n, 4] int64, patterns uint8)."""
+    from snap_tpu_torch.constants import MAX_K
+
+    meta = np.empty((n, 4), np.int64)
+    pats, off = [], 0
+    for r in range(n):
+        s = int(rng.integers(0, codes.size - L - 200))
+        p = codes[s : s + L + 3].copy()
+        red = rng.random(L) < 0.01
+        p[: L][red] = rng.integers(0, 4, int(red.sum()))
+        dist = int((p[:L] != codes[s : s + L]).sum())
+        if r % 3 == 0:
+            k, at = int(rng.integers(1, 4)), int(rng.integers(10, L - 10))
+            p = (np.delete(p, slice(at, at + k)) if r % 2
+                 else np.insert(p, at, rng.integers(0, 4, k).astype(np.uint8)))
+            dist += k
+        p = p[: L - (int(rng.integers(1, 7)) if r % 17 == 0 else 0)]
+        T = len(p) + min(MAX_K, max(8, 2 * dist + 8))
+        meta[r] = (off, len(p), s, T)
+        pats.append(p)
+        off += len(p)
+    return meta, np.concatenate(pats).astype(np.uint8)
+
+
+def phase_agcigar(seed: int) -> dict:
+    """The emission AG CIGAR kernel (csrc/agcigar.cu) at each cell's
+    shapes on a genome of E. coli's length: bit for bit against its plain
+    version (on the CPU), its device time (CUDA graph replays), one host
+    call of ops.agcigar_cuda.ag_traceback_rows (the upload, launch,
+    download and synchronize of a round of the fixup loop), the plain
+    version's time, the host's native row-at-a-time loop that it takes
+    over (native.ag_traceback a row), and the bound."""
+    import torch
+
+    from snap_tpu_torch.align.agcigar import AG_MATCH, AG_MISMATCH, EXT, OPEN
+    from snap_tpu_torch.io import native
+    from snap_tpu_torch.ops import agcigar_cuda as K
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, 4_641_652).astype(np.uint8)
+    g_card, g_cpu = torch.from_numpy(codes).cuda(), torch.from_numpy(codes)
+    scores = (OPEN, EXT, AG_MATCH, AG_MISMATCH)
+    out = {}
+    for cell, (L, n) in AGCIGAR_SHAPES.items():
+        meta, pat = agcigar_rows(rng, codes, L, n)
+        order = np.argsort(K._order_keys(meta), kind="stable")
+        meta = np.ascontiguousarray(meta[order])
+        R, groups = K.launch_plan(meta)
+        meta_d, pat_d = torch.from_numpy(meta).cuda(), torch.from_numpy(pat).cuda()
+        run = lambda: K.ag_traceback_cuda(g_card, meta_d, pat_d, R, groups, *scores)
+        before = K.ag_traceback_cuda.launches
+        got = run().cpu().numpy()
+        launches = K.ag_traceback_cuda.launches - before
+        t0 = time.time()
+        ref = K.ag_traceback_rows(g_cpu, meta, pat, *scores)
+        plain_ms = (time.time() - t0) * 1e3
+        bad = [r for r in range(n)
+               if not np.array_equal(got[r, : 2 + got[r, 0]], ref[r, : 2 + ref[r, 0]])]
+        if bad:
+            fail("agcigar", f"{cell}: {len(bad)} of {n} rows differ from the plain "
+                            f"version, first {bad[:5]}")
+        t0 = time.time()
+        for o, pl, loc, T in meta:
+            native.ag_traceback(codes[loc : loc + T], pat[o : o + pl], *scores)
+        host_ms = (time.time() - t0) * 1e3
+        cells = int((meta[:, 1] * meta[:, 3]).sum())
+        nbytes = int(meta[:, 1].sum() + meta[:, 3].sum() + meta.nbytes
+                     + 4 * (ref[:, 0] + 2).sum())
+        bms, by = bound_ms(nbytes, AGTB_OPS_PER_CELL * cells, 0)
+        ms = device_ms(run)
+        row = {"rows": n, "read_len": L, "launches": launches, "groups": len(groups),
+               "cells": cells, "runs_mean": float(ref[:, 0].mean()),
+               "ms": ms, "call_ms": cuda_ms(lambda: K.ag_traceback_rows(g_card, meta, pat, *scores)),
+               "plain_ms": plain_ms, "host_native_ms": host_ms,
+               "bytes": nbytes, "int_ops": AGTB_OPS_PER_CELL * cells,
+               "bound_ms": bms, "bound_by": by, "x_bound": ms / bms,
+               "smem": [g[3] for g in groups],
+               "global_plane_rows": sum(g[1] - g[0] for g in groups if g[4])}
+        emit({"phase": "agcigar", "ok": True, "cell": cell, **row})
+        out[cell] = row
+    return out
 
 
 def launch_sums(rows: list) -> dict:
@@ -982,12 +1162,14 @@ def phase_e2e(seed: int, glen: int, workdir: str, profile: bool = False):
 
     # the main path, counted: one adaptive step, then one with phase C
     # whose kernel inputs are kept for the kernels phase
-    per_step = {"gapless_prescreen": 2, "fitting_edit_distance": 4, "affine_extend": 4}
-    per_step_c = {"gapless_prescreen": 3, "fitting_edit_distance": 6, "affine_extend": 6}
+    per_step = {"gapless_prescreen": 2, "fitting_edit_distance": 4, "affine_extend": 4,
+                "agcigar": 0}
+    per_step_c = {"gapless_prescreen": 3, "fitting_edit_distance": 6, "affine_extend": 6,
+                  "agcigar": 0}
     torch.cuda.reset_peak_memory_stats()
     packed_ab, counts_ab = counted(lambda: step())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    calls = {name: [] for name in KERNEL_SOURCES}
+    calls = no_calls()
     with recording(calls):
         packed_c, counts_c = counted(lambda: step(phase_c=True))
     for want, got, what in ((per_step, counts_ab, "adaptive"),
@@ -1367,20 +1549,24 @@ def phase_sam(seed: int, ctx: dict, workdir: str, profile: bool = False) -> dict
     # defaults first: it keeps the inputs of every launch of the first
     # RECORD_STEPS steps and of every launch its redo paths make, and takes
     # the first-use costs off the timed runs
-    step_calls = {name: [] for name in KERNEL_SOURCES}
-    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    step_calls = no_calls()
+    redo_calls = no_calls()
     n_rec = SAM_RECORD_READS
     fq_rec = os.path.join(workdir, "sam_rec.fq")
     write_fastq(fq_rec, reads[:n_rec], quals[:n_rec], names[:n_rec])
     rec_out = os.path.join(workdir, "recorded.sam")
     t0 = time.time()
-    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS}), \
+    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS,
+                                       ag_rows_key(): RECORD_STEPS}), \
             recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
         rec = run_single(["single", idx_dir, fq_rec, "-o", rec_out])
     replays = {"step": replay_launches(step_calls, "-b 1024 step"),
                "redo": replay_launches(redo_calls, "redo path")}
     del step_calls, redo_calls
     record_s = time.time() - t0
+    if not (rec["launches"]["agcigar"] and replays["step"]["agcigar"]["launches"]):
+        fail("sam", "the AG CIGAR kernel never ran in the recorded run's finalize: "
+                    f"{rec['launches']}")
 
     runs = []
     for k, (b, n) in enumerate(SAM_RUNS):
@@ -1568,8 +1754,8 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
     # versions. The wide tier launches no kernel: its pairs are scored
     # by their batch's score_candidates and two_phase_merge.
     cls = paired_driver.PairedEndAligner
-    batch_calls = {name: [] for name in KERNEL_SOURCES}
-    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    batch_calls = no_calls()
+    redo_calls = no_calls()
     fq_rec = write_pairs("rec", PAIRED_RECORD_PAIRS)
     with recording(batch_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}), \
             recording(redo_calls, inside={(cls, "_redo_overflow_pairs"): None,
@@ -1577,7 +1763,7 @@ def phase_paired(seed: int, ctx: dict, workdir: str) -> dict:
         rec = run_paired(["paired", idx_dir, *fq_rec, "-o", os.path.join(workdir, "prec.sam")])
     replays = {"batch": replay_launches(batch_calls, "paired batches", "paired"),
                "redo": replay_launches(redo_calls, "paired redo paths", "paired")}
-    empty = [n for n, r in replays["batch"].items() if r["launches"] == 0]
+    empty = [n for n in KERNEL_SOURCES if replays["batch"][n]["launches"] == 0]
     if empty:
         fail("paired", f"no launch of {empty} recorded in the first batches")
 
@@ -1642,8 +1828,8 @@ def recorded_run(phase: str, argv: list[str], batches: int):
     batch apart. Returns (run, calls, first-batch calls)."""
     from snap_tpu_torch.align.single import SingleEndAligner as cls
 
-    calls = {name: [] for name in KERNEL_SOURCES}
-    first = {name: [] for name in KERNEL_SOURCES}
+    calls = no_calls()
+    first = no_calls()
     with recording(calls, inside={(cls, "_submit"): batches, (cls, "_finalize"): batches}), \
             recording(first, inside={(cls, "_submit"): 1, (cls, "_finalize"): 1}):
         run = run_single(argv, phase=phase)
@@ -1720,8 +1906,10 @@ def launch_spread(calls: dict) -> dict:
     (min, quartiles, max) of plen (and tlen), the rows past 512 pattern
     columns (the long-row kernels' rows) and, for the affine, past
     BLOCK_COLS (the block kernel's); for the gapless prescreen its reads,
-    candidates, positions and threads a pair."""
+    candidates, positions and threads a pair; for the AG CIGAR kernel its
+    rows, L and T, and the rows of its global plane."""
     from snap_tpu_torch.ops.affine_cuda import BLOCK_COLS
+    from snap_tpu_torch.ops.agcigar_cuda import fits as agcigar_fits
     from snap_tpu_torch.ops.gapless_cuda import ONE_THREAD_L, split_threads
 
     q = lambda x: np.percentile(x.cpu().numpy(), [0, 25, 50, 75, 100]).tolist()
@@ -1729,6 +1917,12 @@ def launch_spread(calls: dict) -> dict:
     for name, launches in calls.items():
         rows = []
         for args, _ in launches:
+            if name == "agcigar":
+                meta = args[1].cpu()
+                rows.append({"rows": meta.shape[0], "L": q(meta[:, 1]), "T": q(meta[:, 3]),
+                             "global_plane_rows": sum(
+                                 not agcigar_fits(int(T), int(L)) for L, T in meta[:, [1, 3]])})
+                continue
             if name == "gapless_prescreen":
                 B, K, L = args[0].shape[0], args[10], args[6].shape[1]
                 rows.append({"B": B, "K": K, "L": L, "threads_a_pair":
@@ -2228,9 +2422,10 @@ def phase_hg38(seed: int, ctx: dict, sam: dict, paired: dict, workdir: str) -> t
     fq_rec = os.path.join(workdir, "hg38_rec.fq")
     k = HG38_RECORD_READS
     write_fastq(fq_rec, reads[:k], quals[:k], names[:k])
-    step_calls = {name: [] for name in KERNEL_SOURCES}
-    redo_calls = {name: [] for name in KERNEL_SOURCES}
-    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS}), \
+    step_calls = no_calls()
+    redo_calls = no_calls()
+    with recording(step_calls, inside={"align_winners_device": RECORD_STEPS,
+                                       ag_rows_key(): RECORD_STEPS}), \
             recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
         rec = run_single(["single", idx_dir, fq_rec, "-o", os.path.join(workdir, "hg38_rec.sam")],
                          phase="hg38")
@@ -2292,8 +2487,8 @@ def phase_hg38(seed: int, ctx: dict, sam: dict, paired: dict, workdir: str) -> t
     for e in range(2):
         write_fastq(fqs[e], ends[e], pquals[e], pnames)
     cls = paired_driver.PairedEndAligner
-    batch_calls = {name: [] for name in KERNEL_SOURCES}
-    redo_calls = {name: [] for name in KERNEL_SOURCES}
+    batch_calls = no_calls()
+    redo_calls = no_calls()
     with recording(batch_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}), \
             recording(redo_calls, inside={(cls, "_redo_overflow_pairs"): None,
                                           (cls, "_fix_edge_indels"): None}):
@@ -2431,7 +2626,7 @@ def mesh_child(rank: int, port: int, d: str) -> None:
     def step():
         return mesh.align_winners_sharded(sh, tb, tq, tl, job["fas"], params, m)[0]
 
-    calls = {name: [] for name in KERNEL_SOURCES}
+    calls = no_calls()
     with recording(calls):
         packed, launches = counted(step)
     acc = {}
@@ -2561,9 +2756,10 @@ def phase_mesh(hg: dict, sam: dict, workdir: str, submit) -> dict:
 
     # (1) single -ishards 2: a 1 x 1 mesh on one card
     argv_of = lambda f, o: ["single", idx_dir, f, "-o", o, "-ishards", "2"]
-    step_calls = {name: [] for name in KERNEL_SOURCES}
-    redo_calls = {name: [] for name in KERNEL_SOURCES}
-    with recording(step_calls, inside={(mesh, "align_winners_sharded"): MESH_RECORD_STEPS}), \
+    step_calls = no_calls()
+    redo_calls = no_calls()
+    with recording(step_calls, inside={(mesh, "align_winners_sharded"): MESH_RECORD_STEPS,
+                                       ag_rows_key(): MESH_RECORD_STEPS}), \
             recording(redo_calls, inside=dict.fromkeys(REDO_PATH)):
         rec = run_single(argv_of(fq, os.path.join(workdir, "mesh_rec.sam")), phase="mesh")
     replays["single_step"] = replay_launches(step_calls, "mesh steps", "mesh")
@@ -2609,7 +2805,7 @@ def phase_mesh(hg: dict, sam: dict, workdir: str, submit) -> dict:
     def step(bb=tb, qq=tq, ll=tl, d=sh, m=mesh2):
         return mesh.align_winners_sharded(d, bb, qq, ll, fas, params, m)[0]
 
-    calls = {name: [] for name in KERNEL_SOURCES}
+    calls = no_calls()
     with recording(calls):
         packed, launches = counted(step)
     missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) == 0]
@@ -2691,7 +2887,7 @@ def phase_mesh(hg: dict, sam: dict, workdir: str, submit) -> dict:
         return fqs
 
     cls = paired_driver.PairedEndAligner
-    batch_calls = {name: [] for name in KERNEL_SOURCES}
+    batch_calls = no_calls()
     fqp = write_pairs("mesh_pairs", MESH_PAIRS)
     out = os.path.join(workdir, "mesh_pairs.sam")
     n_sharded = [0]
@@ -2744,7 +2940,7 @@ def phase_mesh(hg: dict, sam: dict, workdir: str, submit) -> dict:
                           len(c5_check[2]), positions=CONFIG5_POSITIONS, ext=".bam",
                           submit=submit)
     place_s = first["to_mesh"][0]
-    c5_calls = {name: [] for name in KERNEL_SOURCES}
+    c5_calls = no_calls()
     with recording(c5_calls, inside={(cls, "align_batch"): PAIRED_RECORD_BATCHES}):
         crun = run_paired(c5_argv(f1, f2, out), phase="mesh",
                           devices=[torch.device(CARD)] * CONFIG5_POSITIONS,
@@ -3166,6 +3362,30 @@ def kernels_line(ksum: dict, launches: dict, step_launches: dict, replays: dict,
             if name in r["first_batch"]:
                 k[t] = r["first_batch"][name]
         out.append(k)
+    # the AG CIGAR kernel runs in no step: its launches on each path, the
+    # main-path launches replayed bit for bit, and the long phase's first
+    # batches' sums
+    name = "agcigar"
+    get = lambda d: d.get(name)  # runs whose counts cover the step's kernels only lack it
+    k = {"name": name, "route": "cuda", "source": "snap_tpu_torch/csrc/agcigar.cu",
+         "replaces": None, "launches": get(launches),
+         "sam_step_launches_replayed": get(replays["step"])["launches"],
+         "launches_paired": get(paired["launches"]),
+         "paired_launches_replayed": sum(
+             get(r)["launches"] for r in paired["replays"].values()),
+         "launches_long": {t: get(r["launches"]) for t, r in long.items()},
+         "launches_options": {t: get(r["launches"]) for t, r in options.items()},
+         "launches_daemon": get(apps["daemon"]["launches"]),
+         "launches_profile": {run: get(n) for run, n in profile.items()},
+         "launches_bigidx": get(bigidx["launches"])}
+    for ph, res in (("hg38", hg38), ("mesh", mesh)):
+        k[f"launches_{ph}"] = {t: get(r["launches"]) for t, r in res["runs"].items()}
+        k[f"{ph}_launches_replayed"] = {t: (get(r) or {}).get("launches")
+                                       for t, r in res["replays"].items()}
+    for t, r in long.items():
+        if name in r["first_batch"]:
+            k[t] = r["first_batch"][name]
+    out.append(k)
     return {"kernels": out}
 
 
@@ -3178,6 +3398,8 @@ def main() -> None:
                          "and profile one FASTQ -> SAM run's host with cProfile")
     ap.add_argument("--baseline", metavar="DIR",
                     help="also build and time the kernel sources found in DIR")
+    ap.add_argument("--only", choices=["agcigar"],
+                    help="build, then run only this phase")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "snap_tpu_torch")):
@@ -3191,6 +3413,13 @@ def main() -> None:
     smi, name = phase_device()
     base = baselines(args.baseline)
     phase_build(base)
+    if args.only == "agcigar":
+        t0 = time.time()
+        phase_agcigar(args.seed)
+        emit({"phase": "seconds", "ok": True, "agcigar": time.time() - t0,
+              "script": time.time() - T_START})
+        print(smi, flush=True)
+        return
     import tempfile
 
     seconds = {}
@@ -3234,6 +3463,8 @@ def main() -> None:
             seconds["bigidx"], t0 = time.time() - t0, time.time()
             ksum = phase_kernels(calls, base)
             seconds["kernels"], t0 = time.time() - t0, time.time()
+            phase_agcigar(args.seed)
+            seconds["agcigar"], t0 = time.time() - t0, time.time()
             cpu.finish()
             seconds["card_vs_cpu_wait"] = time.time() - t0
     finally:

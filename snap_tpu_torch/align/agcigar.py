@@ -131,10 +131,13 @@ def ag_global_cigar_ops(
     text: np.ndarray,
     pattern: np.ndarray,
     quality: np.ndarray,
+    aln=None,
 ):
     """Returns (ops_list [(action, count)...] alignment order, tail_ins,
-    n_edits, net_del). Mirrors computeGlobalScore's post-processing."""
-    runs, text_used = ag_global_alignment(text, pattern)
+    n_edits, net_del). Mirrors computeGlobalScore's post-processing.
+    aln: ag_global_alignment's (runs, text_used) for these arguments,
+    where the caller has it already (the card's batch)."""
+    runs, text_used = ag_global_alignment(text, pattern) if aln is None else aln
     if not runs:
         return [], 0, 0, 0
     # runs are in traceback (reverse) order; runs[0] is the END of the
@@ -242,50 +245,60 @@ def compute_ag_cigar_at(
     w), so callers that know the edit distance pass dist + slack and
     the DP shrinks from O((L+MAX_K)*L) to O((L+d)*L).
     """
-    loc = int(genome_loc)
-    fclip = front_clip
-    bclip = back_clip
+    state = (int(genome_loc), pattern, quality, front_clip)
     for _ in range(max_iters):
+        loc, pattern, quality, fclip = state
         if len(pattern) == 0:
             return None
         text = np.asarray(
             genome[loc : loc + len(pattern) + text_margin], dtype=np.uint8
         )
-        ops, tail_ins, n_edits, _ = ag_global_cigar_ops(text, pattern, quality)
-        if not ops:
-            return None
-        add_front = 0
-        if ops[0][0] == "D":
-            add_front = ops[0][1]
-        elif ops[0][0] == "I":
-            add_front = -ops[0][1]
-        if add_front == 0:
-            if tail_ins:
-                bclip += tail_ins
-            # strip trailing deletions (never emitted)
-            while ops and ops[-1][0] == "D":
-                n_edits -= ops[-1][1]
-                ops.pop()
-            parts = []
-            if fclip:
-                parts.append(f"{fclip}S")
-            if use_m:
-                parts += [f"{c}{a}" for a, c in ops]
-            else:
-                parts += _eq_x_ops(ops, text, pattern)
-            if bclip:
-                parts.append(f"{bclip}S")
-            return loc, "".join(parts), n_edits
-        if add_front > 0:
-            # alignment really starts later: shift location
-            loc += add_front
-        else:
-            # leading insertion: soft-clip those pattern bases
-            k = -add_front
-            pattern = pattern[k:]
-            quality = quality[k:]
-            fclip += k
+        res, state = _fixup_round(
+            text, ag_global_alignment(text, pattern), loc, pattern, quality,
+            fclip, back_clip, use_m,
+        )
+        if state is None:
+            return res
     return None
+
+
+def _fixup_round(text, aln, loc, pattern, quality, fclip, bclip, use_m):
+    """One round of compute_ag_cigar_at's addFrontClipping loop on the
+    alignment `aln` (ag_global_alignment's answer) of pattern against
+    text = genome[loc:...]. Returns (result, None) when the row is done,
+    result (final_loc, cigar, nm) or None if it failed, else (None,
+    (loc, pattern, quality, fclip)) for the next round."""
+    ops, tail_ins, n_edits, _ = ag_global_cigar_ops(text, pattern, quality, aln)
+    if not ops:
+        return None, None
+    add_front = 0
+    if ops[0][0] == "D":
+        add_front = ops[0][1]
+    elif ops[0][0] == "I":
+        add_front = -ops[0][1]
+    if add_front > 0:
+        # alignment really starts later: shift location
+        return None, (loc + add_front, pattern, quality, fclip)
+    if add_front < 0:
+        # leading insertion: soft-clip those pattern bases
+        k = -add_front
+        return None, (loc, pattern[k:], quality[k:], fclip + k)
+    if tail_ins:
+        bclip += tail_ins
+    # strip trailing deletions (never emitted)
+    while ops and ops[-1][0] == "D":
+        n_edits -= ops[-1][1]
+        ops.pop()
+    parts = []
+    if fclip:
+        parts.append(f"{fclip}S")
+    if use_m:
+        parts += [f"{c}{a}" for a, c in ops]
+    else:
+        parts += _eq_x_ops(ops, text, pattern)
+    if bclip:
+        parts.append(f"{bclip}S")
+    return (loc, "".join(parts), n_edits), None
 
 
 def _eq_x_ops(ops, text, pattern):
@@ -326,15 +339,22 @@ def compute_ag_cigar_batch(
     bclips: np.ndarray,
     margins: np.ndarray,
     use_m: bool = True,
+    genome_t=None,
 ):
     """Batched compute_ag_cigar_at over n rows.
 
-    One native call (snapio_ag_cigar_batch) replaces the per-row
-    Python fixup/normalize/render pipeline; rows the native path could
-    not stabilize (or the whole batch, when the library is missing)
-    fall back to the per-row Python implementation. Returns a list of
+    `genome_t`: the index's genome tensor. On the card, the DP and
+    traceback of every row run there, one kernel launch a round of the
+    fixup loop (_card_batch). Otherwise one native call
+    (snapio_ag_cigar_batch) replaces the per-row Python
+    fixup/normalize/render pipeline; rows the native path could not
+    stabilize (or the whole batch, when the library is missing) fall
+    back to the per-row Python implementation. Returns a list of
     (final_loc, cigar, nm) | None per row.
     """
+    if genome_t is not None and genome_t.is_cuda:
+        return _card_batch(genome, genome_t, bodies, quals, locs, fclips,
+                           bclips, margins, use_m)
     from ..io.native import ag_cigar_batch
 
     n = len(bodies)
@@ -365,4 +385,73 @@ def compute_ag_cigar_batch(
             int(fclips[i]), int(bclips[i]), use_m=use_m,
             text_margin=int(margins[i]),
         )
+    return out
+
+
+def _card_batch(genome, genome_t, bodies, quals, locs, fclips, bclips,
+                margins, use_m, max_iters: int = 8):
+    """compute_ag_cigar_batch with the DP on genome_t's device (the
+    card; the plain version for a CPU tensor): each round of the fixup
+    loop aligns its rows in one ops.agcigar_cuda call, and the
+    host normalizes, renders and shifts or clips each row as
+    _fixup_round does; the rows whose first op is D or I go round again,
+    up to max_iters rounds, as in snapio_ag_cigar_batch. Rows of any
+    length run there (a row whose traceback plane does not fit one
+    block's shared memory runs the kernel's global-plane case). Counts
+    on the open span: `iters` (rounds launched) and `rerun_rows` (rows
+    aligned again after the first round)."""
+    from ..ops.agcigar_cuda import OPS, ag_traceback_rows
+    from ..stats import RECORDER
+
+    n = len(bodies)
+    out: list = [None] * n
+    glen = len(genome)
+    loc = [int(x) for x in locs]
+    pat = [np.asarray(b, np.uint8) for b in bodies]
+    qual = [np.asarray(q, np.uint8) for q in quals]
+    fc = [int(x) for x in fclips]
+    mg = [int(x) for x in margins]
+
+    def tlen(r):
+        return min(len(pat[r]) + mg[r], glen - loc[r])
+
+    def alive(r):  # snapio_ag_cigar_batch's guards: else the row fails
+        return len(pat[r]) > 0 and 0 <= loc[r] < glen
+
+    active = list(range(n))
+    for it in range(max_iters):
+        active = [r for r in active if alive(r)]
+        if not active:
+            break
+        T = [tlen(r) for r in active]
+        P = [len(pat[r]) for r in active]
+        meta = np.empty((len(active), 4), np.int64)
+        meta[:, 0] = np.concatenate(([0], np.cumsum(P)[:-1]))
+        meta[:, 1] = P
+        meta[:, 2] = [loc[r] for r in active]
+        meta[:, 3] = T
+        res = ag_traceback_rows(
+            genome_t, meta, np.concatenate([pat[r] for r in active]),
+            OPEN, EXT, AG_MATCH, AG_MISMATCH,
+        )
+        RECORDER.tally("iters")
+        if it:
+            RECORDER.tally("rerun_rows", len(active))
+        nxt = []
+        for t, r in enumerate(active):
+            nr = int(res[t, 0])
+            if nr <= 0:
+                continue
+            runs = [[OPS[v & 3], v >> 2] for v in res[t, 2 : 2 + nr].tolist()]
+            text = np.asarray(genome[loc[r] : loc[r] + T[t]], dtype=np.uint8)
+            done, again = _fixup_round(
+                text, (runs, int(res[t, 1])), loc[r], pat[r], qual[r], fc[r],
+                int(bclips[r]), use_m,
+            )
+            if again is None:
+                out[r] = done
+            else:
+                loc[r], pat[r], qual[r], fc[r] = again
+                nxt.append(r)
+        active = nxt
     return out

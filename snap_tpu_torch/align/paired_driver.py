@@ -613,6 +613,7 @@ class PairedEndAligner:
             np.asarray(locs_l, np.int64),
             np.asarray(fcs, np.int32), np.asarray(bcs, np.int32),
             np.asarray(mgs, np.int32), use_m=self.use_m,
+            genome_t=self.index.device.genome,
         )
         pre: dict[tuple, tuple] = {}
         for t, r in zip(ag_idx, res_b):

@@ -23,7 +23,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNELS = ("gapless", "dp", "affine")
+KERNELS = ("gapless", "dp", "affine", "agcigar")
 
 # -fmad=false: no a*b+c contraction, so the float32 log-probabilities
 # are rounded after every operation exactly as the plain PyTorch

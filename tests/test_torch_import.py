@@ -26,6 +26,7 @@ MODULES = [
     "snap_tpu_torch.ops.dp_cuda",
     "snap_tpu_torch.ops.affine",
     "snap_tpu_torch.ops.affine_cuda",
+    "snap_tpu_torch.ops.agcigar_cuda",
     "snap_tpu_torch.align.pipeline",
     "snap_tpu_torch.options",
     "snap_tpu_torch.errors",

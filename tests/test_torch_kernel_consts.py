@@ -1,7 +1,8 @@
 """The CUDA kernels' launch and scratch constants against their Python
 mirrors, on the CPU.
 
-The wrappers (ops/dp_cuda.py, ops/affine_cuda.py, ops/_build.py) size
+The wrappers (ops/dp_cuda.py, ops/affine_cuda.py, ops/agcigar_cuda.py,
+ops/_build.py) size
 the blocks, the row counters and the scratch that csrc/dp.cu and
 csrc/affine.cu index from their own `constexpr`s, and ops/gapless_cuda.py
 and ops/affine_cuda.py name the routes that csrc/gapless.cu and
@@ -16,7 +17,8 @@ import re
 
 import pytest
 
-from snap_tpu_torch.ops import _build, affine_cuda, dp_cuda, gapless_cuda
+from snap_tpu_torch.align import agcigar
+from snap_tpu_torch.ops import _build, affine_cuda, agcigar_cuda, dp_cuda, gapless_cuda
 
 
 def _source(name: str) -> str:
@@ -195,3 +197,26 @@ def test_gapless_routes():
     assert "const size_t smem = (size_t)(2 * (2 * chunk + 1) * 33 + chunk * 32 + split * 32) * 4;" in src
     assert "__launch_bounds__(32 * G) gapless_split_kernel(" in src
     assert "gapless_split_kernel<GG><<<blocks, 32 * GG, smem, s>>>(" in src
+
+
+def test_agcigar_cases_and_shared_memory():
+    """agcigar_cuda's header, shared-memory limit, NEG, lane-column cases
+    and global-plane columns are csrc/agcigar.cu's, and its slot layout
+    mirrors the kernel's; the widest case's shared memory for -rl 256
+    rows at the MAX_K margin fits a block."""
+    k = _constants("agcigar")
+    src = _source("agcigar")
+    assert (k["kHeader"], k["kMaxSmem"], k["kNeg"], k["kGlobalCols"]) == (
+        agcigar_cuda.HEADER, agcigar_cuda.MAX_SMEM, agcigar_cuda.NEG, agcigar_cuda.GLOBAL_COLS)
+    assert agcigar_cuda.NEG == agcigar.NEG
+    assert tuple(int(c) for (c,) in _cases("agcigar", "SNAP_AG_CASE")) == agcigar_cuda.LANE_COLS
+    assert "__host__ __device__ inline int text_bytes(int T) { return (T + 15) & ~15; }" in src
+    assert "tb = smem + text_bytes(T);" in src
+    assert "return ((int64_t)16 * T + 15) & ~(int64_t)15;" in src   # handover_bytes
+    assert "tb = slot + handover_bytes(T);" in src
+    assert "const int64_t P = (int64_t)nst * S;" in src
+    assert "constexpr int S = kLanes * C;" in src
+    assert "return launch<kGlobalCols, true>(" in src
+    assert "agcigar" in _build.KERNELS
+    assert agcigar_cuda.smem_bytes(383, 8) <= agcigar_cuda.MAX_SMEM
+    assert agcigar_cuda.slot_bytes(10, 513) == 160 + 10 * 1024

@@ -18,6 +18,7 @@ import os
 import time
 from collections import Counter, defaultdict
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +26,7 @@ from snap_tpu_torch import cli
 from snap_tpu_torch.align import pipeline as TP
 from snap_tpu_torch.align import single as tsingle
 from snap_tpu_torch.stats import _OFF, RECORDER, Recorder
-from test_torch_cli_cuda import write_inputs
+from test_torch_cli_cuda import DEC, genome_codes, write_inputs
 
 torch.set_num_threads(1)
 
@@ -206,8 +207,9 @@ def test_redo_spans_count_the_branches_reads(runs, run):
     if run == "overflow":
         assert br["dp_overflow"] == 64 and len(ovf) == 1
         inner = sorted((s[0], s[3]) for s in spans if s[0].startswith("two_phase."))
-        assert inner == [(name, "redo.dp_overflow") for name in (
-            "two_phase.merge", "two_phase.per_read", "two_phase.tier1")]
+        assert inner == [("two_phase.ag_batch", "two_phase.per_read")] + [
+            (name, "redo.dp_overflow") for name in (
+                "two_phase.merge", "two_phase.per_read", "two_phase.tier1")]
     else:
         assert not ovf and br["dp_overflow"] == 0 and br["redo_edge_indel"] > 0
 
@@ -223,6 +225,107 @@ def test_redo_finalize_is_one_batch_a_chunk(runs, run):
         assert parent == "redo.wide"
         assert c["batched"] + c["per_read"] == c["rows"] > 0
         assert c["per_read"] == 0 and 0 <= c["near"] <= c["rows"]
+
+
+@pytest.fixture(scope="module")
+def two_phase_ag(runs):
+    """The overflowed batch of `runs` again, its two-phase winners' AG
+    CIGARs three ways: one compute_ag_cigar_batch call (the host's native
+    batch here), each row in winner_record, and the batch through the
+    card's path (agcigar._card_batch, the kernel's plain version on the
+    CPU). Each: (aligner, SAM, spans, the two-phase records, the rows
+    given to _ag_cigars with their flags)."""
+    from snap_tpu_torch.align import agcigar
+
+    d = runs["dir"]
+    host_batch = agcigar.compute_ag_cigar_batch
+    # 48 reads of every kind, and 16 whose 1 bp deletion 3-6 bases from
+    # an end leaves a gapless winner that one gap may restructure
+    codes = genome_codes("repeat25")
+    rng = np.random.default_rng(5)
+    extra = []
+    for t in range(16):
+        s0 = int(rng.integers(0, codes.size - 200))
+        r = np.delete(codes[s0 : s0 + 101], 97 - t % 4)
+        if t % 2:
+            r = np.where(r < 4, 3 - r, r)[::-1]
+        extra.append(b"@f%d\n%s\n+\n%s\n" % (t, DEC[r].tobytes(), b"I" * 100))
+    with open(d / "r.fq", "rb") as f:
+        first = [f.readline() for _ in range(4 * 48)]
+    (d / "rag.fq").write_bytes(b"".join(first + extra))
+
+    def card(genome, *a, **kw):
+        kw.pop("genome_t")
+        return agcigar._card_batch(genome, torch.from_numpy(np.array(genome)), *a,
+                                   kw.pop("use_m"))
+
+    out = {}
+    for name in ("batched", "per_row", "card"):
+        records, covered = [], []
+        finalize, ag_cigars = tsingle.SingleEndAligner._finalize, tsingle.SingleEndAligner._ag_cigars
+
+        def keep(self, batch, handles, *a, **kw):
+            res = finalize(self, batch, handles, *a, **kw)
+            if isinstance(res, list) and not (isinstance(handles[0], str)
+                                              and handles[0] == "fast"):
+                records.append(res)
+            return res
+
+        def rows(self, batch, arrays, front_clips, rws):
+            for i, ai, k, _, dist, _ in rws:
+                covered.append((i, bool(arrays["escalated"][ai, k]),
+                                int(arrays["clip_before"][ai, k]) + int(arrays["clip_after"][ai, k]) > 0,
+                                int(arrays["indels"][ai, k]) != 0, dist))
+            if name == "per_row":
+                return [tsingle._AG_NOT_CACHED] * len(rws)
+            return ag_cigars(self, batch, arrays, front_clips, rws)
+
+        RECORDER.drain()
+        RECORDER.enable()
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(tsingle.SingleEndAligner, "_finalize", keep)
+                mp.setattr(tsingle.SingleEndAligner, "_ag_cigars", rows)
+                if name == "card":
+                    mp.setattr(agcigar, "compute_ag_cigar_batch", card)
+                aligner, sam = _run(["single", "idx", "rag.fq", "-o", "out.sam", "-b", "64"],
+                                    d, overflow=True)
+        finally:
+            RECORDER.disable()
+        out[name] = (aligner, sam, RECORDER.drain(), records, covered)
+    assert host_batch is agcigar.compute_ag_cigar_batch
+    return out
+
+
+@pytest.mark.parametrize("way", ["per_row", "card"])
+def test_two_phase_ag_batch_records_are_the_per_row_ones(two_phase_ag, way):
+    """The batched AG CIGARs of an overflowed batch give the records of
+    the per-row path; the batch holds escalated, clipped, flipped and
+    gapless winners."""
+    _, sam, _, records, covered = two_phase_ag["batched"]
+    _, sam2, _, records2, covered2 = two_phase_ag[way]
+    assert len(records) == 1 and len(records[0]) == 64
+    assert records2 == records and sam2 == sam
+    assert covered2 == covered
+    esc = [c for c in covered if c[1]]
+    clipped = [c for c in covered if c[2]]
+    flipped = [c for c in covered if not (c[1] or c[2] or c[3])]
+    assert esc and clipped and flipped and all(c[4] >= 2 for c in flipped)
+    ag = {c[0] for c in covered}
+    gapless = [r for i, r in enumerate(records[0])
+               if i not in ag and r.get("cigar", "*").rstrip("0123456789").endswith("M")
+               and not any(op in r["cigar"] for op in "IDS")]
+    assert gapless
+
+
+def test_two_phase_ag_batch_span_counts_the_rows(two_phase_ag):
+    for name in ("batched", "card"):
+        _, _, spans, _, covered = two_phase_ag[name]
+        ag = [s for s in spans if s[0] == "two_phase.ag_batch"]
+        assert [(s[3], s[5]["rows"]) for s in ag] == [("two_phase.per_read", len(covered))]
+        if name == "card":
+            assert ag[0][5]["iters"] >= 1
+            assert ag[0][5].get("rerun_rows", 0) >= 0
 
 
 def test_sam_is_the_same_with_the_recorder_on(runs):

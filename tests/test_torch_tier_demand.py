@@ -140,11 +140,12 @@ def test_recorder_off_asks_for_no_demand(runs):
 @pytest.mark.cuda
 def test_route_counts_add_up_to_the_launches(tmp_path):
     """On the card, at -rl 256 (the long routes: gapless_split, dp_mid,
-    affine_xl) and at the default -rl 128: every launch of the three
-    wrappers counts once, by route, in the span open around it."""
+    affine_xl) and at the default -rl 128: every launch of the four
+    wrappers (the emission AG CIGARs' too) counts once, by route, in the
+    span open around it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from snap_tpu_torch.ops import affine_cuda, dp_cuda, gapless_cuda
+    from snap_tpu_torch.ops import affine_cuda, agcigar_cuda, dp_cuda, gapless_cuda
 
     write_inputs(str(tmp_path), "repeat25", N_READS)
     with pytest.MonkeyPatch.context() as mp:
@@ -152,7 +153,8 @@ def test_route_counts_add_up_to_the_launches(tmp_path):
         assert cli.main(["index", "g.fa", "idx", "-s", "20"], device="cuda") == 0
     wrappers = {"gapless": gapless_cuda.gapless_prescreen_cuda,
                 "dp": dp_cuda.fitting_edit_distance_core_cuda,
-                "affine": affine_cuda.affine_extend_core_cuda}
+                "affine": affine_cuda.affine_extend_core_cuda,
+                "agcigar": agcigar_cuda.ag_traceback_cuda}
     for rl, long_routes in (("256", {"gapless_split", "dp_mid", "affine_xl"}),
                             ("128", set())):
         before = {k: w.launches for k, w in wrappers.items()}
